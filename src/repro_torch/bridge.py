@@ -1,0 +1,77 @@
+"""Numpy <-> torch trees, and carrying weights into a port engine.
+
+The JAX package initialises its weights from ``jax.random``, whose bits
+torch cannot reproduce; the port's ``init_params`` draws the same shapes
+and distributions from a ``torch.Generator``. To compute from the SAME
+weights on both sides, a caller turns the reference's trees into numpy
+arrays (on its side) and hands them to ``install_weights``. Only weights
+cross: the data, fleet, availability and batch-index streams are seeded
+numpy on both sides and already agree.
+
+bfloat16 numpy arrays (the ``ml_dtypes`` type) cross as float32 values,
+which is exact; ``to_numpy`` returns bfloat16 tensors as float32 too.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_flatten_with_path, tree_map
+
+
+def _leaf_to_torch(x, device, dtype=None) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    # always a copy: the engine updates some trees in place, and must never
+    # write through into the caller's arrays
+    t = torch.tensor(arr)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def to_torch(tree, device="cpu"):
+    """A numpy tree -> the same tree of tensors on ``device``."""
+    return tree_map(lambda x: _leaf_to_torch(x, device), tree)
+
+
+def to_numpy(tree):
+    """A tensor tree -> the same tree of numpy arrays (bf16 as float32)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return tree_map(leaf, tree)
+
+
+def _check_like(name: str, ref, new) -> None:
+    want = {p: tuple(x.shape) for p, x in tree_flatten_with_path(ref)}
+    got = {p: tuple(np.shape(x)) for p, x in tree_flatten_with_path(new)}
+    if want != got:
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        shapes = sorted(p for p in set(want) & set(got) if want[p] != got[p])
+        raise ValueError(f"install_weights: {name} does not match the "
+                         f"port's tree (missing {missing}, extra {extra}, "
+                         f"shape mismatches {shapes})")
+
+
+def install_weights(target, params: Dict[str, Any],
+                    local_heads: Dict[str, Any]) -> None:
+    """Install numpy ``params`` and stacked ``local_heads`` (the reference
+    ``TrainState``'s trees as numpy arrays) into a port ``Engine`` or
+    ``TrainState``, on its device and in its dtypes. The trees must have
+    exactly the port's keys and shapes."""
+    state = getattr(target, "state", target)
+    _check_like("params", state.params, params)
+    _check_like("local_heads", state.local_heads, local_heads)
+    state.params = tree_map(
+        lambda ref, x: _leaf_to_torch(x, ref.device, ref.dtype),
+        state.params, params)
+    state.local_heads = tree_map(
+        lambda ref, x: _leaf_to_torch(x, ref.device, ref.dtype),
+        state.local_heads, local_heads)

@@ -1,0 +1,170 @@
+"""Three-Phase Gradient Fusion (TPGF) — paper §II-B / Algorithm 2.
+
+Phase 1 (client): local head loss, phi_i gradient, clipped encoder grad.
+Phase 2 (server): suffix loss, server param grads, g_z returned to the
+                  client, and the client backprop of g_z through the
+                  encoder.
+Phase 3 (client): loss-weighted fusion (Eq. 3/4) of the two encoder grads.
+
+Both encoder gradients come from ONE client-prefix forward (Algorithm 2,
+line 13; the reference's single ``jax.vjp``): the smashed data ``z`` is
+detached into a leaf that feeds both heads, and two
+``torch.autograd.grad(z, client_params, grad_outputs=...)`` calls pull
+each head's dL/dz back through the one retained graph.
+
+Everything returns *gradients*; ``repro_torch.optim`` applies them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+
+
+class TPGFSplitOut(NamedTuple):
+    g_client: Dict[str, Any]     # client-view gradient tree
+    g_server: Dict[str, Any]     # server-view gradient tree
+    g_local: Dict[str, Any]      # phi_i gradient tree
+    loss_client: torch.Tensor
+    loss_server: torch.Tensor
+    w_client: torch.Tensor
+    aux: Any
+
+
+def tpgf_weight(loss_client, loss_server, d_i: int, d_s: int,
+                eps: float = 1e-8, variant: str = "full"):
+    """Eq. (3): depth-aware x inverse-loss reliability weighting.
+
+    ``variant`` implements the paper's Fig. 6 ablation:
+      full     — both factors (the paper's rule)
+      no_loss  — depth factor only
+      no_depth — loss factor only
+      equal    — neither (naive 0.5/0.5 fusion)
+    """
+    depth = d_i / (d_i + d_s)
+    ic = 1.0 / (loss_client + eps)
+    is_ = 1.0 / (loss_server + eps)
+    loss_term = ic / (ic + is_)
+    if variant == "full":
+        return depth * loss_term
+    if variant == "no_loss":
+        return depth + 0.0 * loss_term
+    if variant == "no_depth":
+        return loss_term
+    if variant == "equal":
+        return 0.5 + 0.0 * loss_term
+    raise ValueError(variant)
+
+
+def fused_loss(loss_client, loss_server, d_i: int, d_s: int,
+               eps: float = 1e-8, variant: str = "full"):
+    """The same fusion rule applied to losses (Eq. 6 aggregation weights);
+    ``variant`` must match the one the gradients were fused under."""
+    w = tpgf_weight(loss_client, loss_server, d_i, d_s, eps, variant)
+    return w * loss_client + (1.0 - w) * loss_server
+
+
+def _fault_degrade(server_available, w_c, g_server_params, g_client,
+                   g_client_local):
+    """Fault-tolerant degrade (paper §II-C): where the server is
+    unreachable this step, the fusion weight collapses to 1, the encoder
+    takes its local-only (Phase-1) gradient and the server branch gets a
+    zero gradient. ``server_available`` is a host bool (the engine's
+    availability draw) or None (never degrade)."""
+    if server_available is None or bool(server_available):
+        return w_c, g_server_params, g_client
+    w_c = torch.ones_like(w_c)
+    g_server_params = tree_map(torch.zeros_like, g_server_params)
+    return w_c, g_server_params, g_client_local
+
+
+def clip_by_global_l2(tree, tau: float):
+    """Paper's Phase-1 encoder-gradient clip (tau = 0.5)."""
+    sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    norm = torch.sqrt(sq)
+    scale = torch.clamp(tau / (norm + 1e-12), max=1.0)
+    return tree_map(lambda x: (x * scale).to(x.dtype), tree), norm
+
+
+def fuse_gradients(g_client, g_server, w_client, *, use_pallas: bool = False):
+    """Eq. (4): per-leaf fused encoder gradient; ``use_pallas`` routes it
+    through the hand-written ``fuse`` kernel (the reference's flag name)."""
+    w_c = w_client.float()
+    if use_pallas:
+        from repro_torch.kernels.tpgf_fusion.ops import fuse_tree
+        return fuse_tree(g_client, g_server, w_c)
+    return tree_map(
+        lambda a, b: (w_c * a.float() + (1.0 - w_c) * b.float()).to(a.dtype),
+        g_client, g_server)
+
+
+def _leaf_params(tree):
+    """Fresh autograd leaves with ``tree``'s values (and its paths)."""
+    flat = tree_flatten_with_path(tree)
+    leaves = [x.detach().requires_grad_(True) for _, x in flat]
+    return [p for p, _ in flat], leaves
+
+
+def _unflatten(paths, leaves):
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
+                     local_p, batch, d: int, *,
+                     server_available=None) -> TPGFSplitOut:
+    """TPGF over an already-split depth-``d`` subnetwork: ``client_p`` holds
+    stack rows ``[:d]``, ``server_p`` rows ``[d:]``. ``wcfg`` is the width
+    config of the client slice; the port has full width only so far."""
+    if wcfg != cfg:
+        raise NotImplementedError(
+            "width-sliced TPGF comes with the next slice of the port "
+            "(ROADMAP queue 1: the width supernet)")
+    d_s = cfg.split_stack_len - d
+    c_paths, c_leaves = _leaf_params(client_p)
+    s_paths, s_leaves = _leaf_params(server_p)
+    l_paths, l_leaves = _leaf_params(local_p)
+
+    # ---- one client-prefix forward (Algorithm 2, line 13)
+    z, aux_prefix = M.client_apply(cfg, _unflatten(c_paths, c_leaves), batch)
+    z_ = z.detach().requires_grad_(True)
+
+    # ---- Phase 1: local supervision
+    loss_client = M.local_loss(cfg, _unflatten(l_paths, l_leaves), z_, batch)
+    *g_local, gz_client = torch.autograd.grad(loss_client, l_leaves + [z_])
+
+    # ---- Phase 2: server supervision
+    loss_server = M.server_split_loss(cfg, _unflatten(s_paths, s_leaves), z_,
+                                      batch)
+    *g_server, gz_server = torch.autograd.grad(loss_server, s_leaves + [z_])
+
+    # client backprop of each branch's dL/dz through the one prefix graph
+    g_client_local = torch.autograd.grad(z, c_leaves, grad_outputs=gz_client,
+                                         retain_graph=True)
+    g_client_server = torch.autograd.grad(z, c_leaves,
+                                          grad_outputs=gz_server)
+    g_client_local = _unflatten(c_paths, g_client_local)
+    g_client_server = _unflatten(c_paths, g_client_server)
+    g_server_params = _unflatten(s_paths, g_server)
+
+    # ---- Phase 3: clip + loss-weighted fusion (Eqs. 3-4)
+    g_client_local, _ = clip_by_global_l2(g_client_local, cfg.tpgf_clip)
+    loss_client, loss_server = loss_client.detach(), loss_server.detach()
+    w_c = tpgf_weight(loss_client, loss_server, d, d_s, cfg.tpgf_eps,
+                      variant=cfg.tpgf_variant)
+    g_client = fuse_gradients(g_client_local, g_client_server, w_c,
+                              use_pallas=cfg.use_pallas)
+    w_c, g_server_params, g_client = _fault_degrade(
+        server_available, w_c, g_server_params, g_client, g_client_local)
+    return TPGFSplitOut(g_client, g_server_params,
+                        _unflatten(l_paths, g_local),
+                        loss_client, loss_server, w_c, aux_prefix)

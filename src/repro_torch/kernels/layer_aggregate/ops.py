@@ -1,0 +1,68 @@
+"""Eq. 8 aggregation of client-stacked leaves: the ``aggregate`` CUDA
+kernel (``csrc/layer_aggregate.cu``) behind a checked wrapper.
+
+``aggregate_leaf`` takes the plain version (``ref.aggregate``) for a
+tensor that lies on the CPU, and only then; for a CUDA tensor it launches
+the kernel or raises. ``aggregate_leaf.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build as B
+from repro_torch.kernels.layer_aggregate import ref as R
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CLIENTS = 12288   # the weight column is staged in 48 KB of shared memory
+
+
+def _kernel():
+    fn = B.load("layer_aggregate").repro_aggregate
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def aggregate_leaf(c, ww, s, lam: float):
+    """c [N, L, ...]; ww [N, L] fp32; s [L, ...] -> [L, ...] in s's dtype."""
+    N, Lk = c.shape[:2]
+    F = math.prod(c.shape[2:])
+    if c.device.type == "cpu":
+        return R.aggregate(c.reshape(N, Lk, F), ww, s.reshape(Lk, F),
+                           lam).reshape(s.shape)
+    if c.device.type != "cuda":
+        raise ValueError(f"aggregate: no kernel for device {c.device}")
+    if s.shape != c.shape[1:] or tuple(ww.shape) != (N, Lk):
+        raise ValueError(
+            f"aggregate: c {tuple(c.shape)}, ww {tuple(ww.shape)} and s "
+            f"{tuple(s.shape)} must be [N, L, ...], [N, L] and [L, ...]")
+    if ww.dtype != torch.float32:
+        raise TypeError(f"aggregate: ww must be float32, got {ww.dtype}")
+    if c.dtype != s.dtype or c.dtype not in _DTYPE_CODE:
+        raise TypeError(f"aggregate: c {c.dtype} and s {s.dtype} must share "
+                        "one dtype of float32, bfloat16")
+    if not all(t.device == c.device for t in (ww, s)):
+        raise ValueError("aggregate: c, ww and s must be on one device")
+    if not all(t.is_contiguous() for t in (c, ww, s)):
+        raise ValueError("aggregate: c, ww and s must be contiguous")
+    if N > MAX_CLIENTS:
+        raise ValueError(f"aggregate: at most {MAX_CLIENTS} clients, got {N}")
+    out = torch.empty_like(s)
+    if F == 0 or Lk == 0:
+        return out
+    rc = _kernel()(_DTYPE_CODE[c.dtype], c.data_ptr(), ww.data_ptr(),
+                   s.data_ptr(), out.data_ptr(), float(lam), N, Lk, F,
+                   torch.cuda.current_stream(c.device).cuda_stream)
+    B.check(rc, "aggregate")
+    aggregate_leaf.launches += 1
+    return out
+
+
+aggregate_leaf.launches = 0

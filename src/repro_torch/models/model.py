@@ -1,0 +1,236 @@
+"""The stacked-layer model, ``vit`` family: (patch embed) -> the layer stack
+-> (mean pool, head).
+
+The stacked tree (leading ``L`` axis) is the paper's weight-sharing
+super-network: a client subnetwork of depth ``d`` is the row slice
+``[:d]`` of every stacked leaf. The JAX package also has a masked
+runtime-depth scan over all ``L`` rows, which exists only to keep XLA's
+compile key small; eager PyTorch has no compile key, so the port always
+slices the stack at ``d`` (the JAX package pins its static and runtime
+forms bit-exact, and ``tests/test_torch_model.py`` holds this slice
+against its runtime form).
+
+Public surface (the JAX module's names):
+  init_params(cfg, gen)
+  embed_inputs / run_stack
+  prefix_apply(cfg, params, batch, d)     -> (z, aux)   smashed data
+  client_apply(cfg, client_params, batch) -> (z, aux)
+  local_logits / local_loss               the client's fault-tolerant head
+  suffix_apply / server_apply             -> (logits, aux) server branch
+  server_split_loss
+  predict / local_predict                 global and client-side inference
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves, tree_map
+
+Params = Dict[str, Any]
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "vit":
+        raise NotImplementedError(
+            f"family={cfg.family!r}: the port runs the vit family only so "
+            "far (ROADMAP queue 1, item 6: the rest of the model zoo)")
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[cfg.dtype]
+
+
+# ----------------------------------------------------------------- stack init
+
+def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+    """One encoder layer's parameter tree (the reference's "enc" role)."""
+    dm = cfg.d_model
+    p: Params = {}
+    p.update({f"attn_norm_{k}": v
+              for k, v in L.norm_params(cfg, dm, dtype).items()})
+    p["attn"] = L.attn_params(cfg, gen, dtype)
+    p.update({f"mlp_norm_{k}": v
+              for k, v in L.norm_params(cfg, dm, dtype).items()})
+    p["mlp"] = L.mlp_params(cfg, gen, dtype)
+    return p
+
+
+def _stack(cfg: ModelConfig, gen: torch.Generator, n: int, dtype) -> Params:
+    per = [_layer_params(cfg, gen, dtype) for _ in range(n)]
+    return tree_map(lambda *xs: torch.stack(xs), *per)
+
+
+def init_local_head(cfg: ModelConfig, gen: torch.Generator,
+                    device="cpu") -> Params:
+    """The fault-tolerant client head phi_i alone."""
+    dtype = torch_dtype(cfg)
+    p = {"local_head": L.dense_init(gen, cfg.d_model, cfg.n_classes, dtype),
+         "local_head_bias": L.zeros((cfg.n_classes,), dtype)}
+    return {k: v.to(device) for k, v in p.items()}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device="cpu") -> Params:
+    """The reference's shapes, dtypes and distributions, drawn from a
+    ``torch.Generator`` (``jax.random`` bits cannot be reproduced in torch;
+    tests carry the reference's weights across with ``repro_torch.bridge``)."""
+    check_family(cfg)
+    dtype = torch_dtype(cfg)
+    dm = cfg.d_model
+    pdim = cfg.patch_size * cfg.patch_size * 3
+    n_patches = (cfg.image_size // cfg.patch_size) ** 2
+    p: Params = {}
+    p["patch_embed"] = L.dense_init(gen, pdim, dm, dtype)
+    p["patch_bias"] = L.zeros((dm,), dtype)
+    p["pos_embed"] = (torch.randn((n_patches, dm), generator=gen)
+                      * 0.02).to(dtype)
+    p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
+    p["head"] = L.dense_init(gen, dm, cfg.n_classes, dtype)
+    p["head_bias"] = L.zeros((cfg.n_classes,), dtype)
+    p.update(init_local_head(cfg, gen))
+    return tree_map(lambda x: x.to(device), p)
+
+
+# ------------------------------------------------------------- layer bodies
+
+def _attn_block(cfg: ModelConfig, p, h, *, positions, causal, window):
+    x = L.apply_norm(cfg, h, p, "attn_norm")
+    q, k, v = L.project_qkv(cfg, p["attn"], x, x)
+    # an all-True mask (non-causal, no window) is the identity: skip it
+    mask = (L.make_attn_mask(positions, positions, causal=causal,
+                             window=window)
+            if causal or window else None)
+    out = L.attention(q, k, v, mask=mask)
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ p["attn"]["wo"]
+
+
+def _layer(cfg: ModelConfig, p, h, *, positions, causal, window):
+    h = h + _attn_block(cfg, p, h, positions=positions, causal=causal,
+                        window=window)
+    x = L.apply_norm(cfg, h, p, "mlp_norm")
+    return h + L.mlp_apply(cfg, p["mlp"], x)
+
+
+def _row(tree, i: int):
+    return {k: (_row(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def stack_len(stack: Params) -> int:
+    leaves = tree_leaves(stack)
+    return int(leaves[0].shape[0]) if leaves else 0
+
+
+def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
+              causal: bool = False, window: int = 0):
+    """Apply every row of ``stack`` to ``h`` in order (the caller slices
+    the depth window). Returns (h, aux); aux is the MoE router loss, 0.0
+    for the vit family."""
+    for i in range(stack_len(stack)):
+        h = _layer(cfg, _row(stack, i), h, positions=positions,
+                   causal=causal, window=window)
+    return h, 0.0
+
+
+# ---------------------------------------------------------------- embeddings
+
+def embed_inputs(cfg: ModelConfig, params: Params, batch) -> Tuple[Any, Any]:
+    """Returns (h [B,S,dm], positions [B,S]); the reference's patchify
+    order (rows of patches, then columns, then pixels and channels)."""
+    check_family(cfg)
+    img = batch["images"]
+    B, Hh, Ww, C = img.shape
+    ps = cfg.patch_size
+    patches = img.reshape(B, Hh // ps, ps, Ww // ps, ps, C)
+    patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(
+        B, (Hh // ps) * (Ww // ps), ps * ps * C)
+    h = patches.to(params["patch_embed"].dtype) @ params["patch_embed"]
+    h = h + params["patch_bias"] + params["pos_embed"][None]
+    pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+    return h, pos
+
+
+def _head_logits(cfg: ModelConfig, params: Params, h):
+    pooled = h.mean(dim=1)
+    return pooled @ params["head"] + params["head_bias"]
+
+
+# --------------------------------------------------------- SuperSFL surfaces
+
+def _depth_slice(stack: Params, lo: int, hi: int = None) -> Params:
+    return tree_map(lambda x: x[lo:hi], stack)
+
+
+def client_apply(cfg: ModelConfig, client_params: Params, batch):
+    """Forward an already-split client view (stack rows ``[:d]``) ->
+    smashed z."""
+    h, pos = embed_inputs(cfg, client_params, batch)
+    return run_stack(cfg, client_params["layers"], h, positions=pos,
+                     window=cfg.sliding_window)
+
+
+def prefix_apply(cfg: ModelConfig, params: Params, batch, d: int):
+    """Client-side forward through the first ``d`` layers of the full
+    tree -> smashed data."""
+    view = dict(params)
+    view["layers"] = _depth_slice(params["layers"], 0, d)
+    return client_apply(cfg, view, batch)
+
+
+def local_logits(cfg: ModelConfig, params: Params, z):
+    """Fault-tolerant lightweight client head on smashed data."""
+    check_family(cfg)
+    pooled = z.mean(dim=1)
+    return pooled @ params["local_head"] + params["local_head_bias"]
+
+
+def local_loss(cfg: ModelConfig, params: Params, z, batch):
+    return L.softmax_xent(local_logits(cfg, params, z), batch["label"])
+
+
+def server_apply(cfg: ModelConfig, server_params: Params, z, batch):
+    """The server branch on an already-split view whose stack holds only
+    the suffix rows ``[d:]``."""
+    check_family(cfg)
+    pos = torch.arange(z.shape[1], device=z.device).expand(z.shape[:2])
+    h, aux = run_stack(cfg, server_params["layers"], z, positions=pos,
+                       window=cfg.sliding_window)
+    return _head_logits(cfg, server_params, h), aux
+
+
+def suffix_apply(cfg: ModelConfig, params: Params, z, batch, d: int):
+    """Server-side forward from smashed data to logits: rows ``[d:]``."""
+    sp = dict(params)
+    sp["layers"] = _depth_slice(params["layers"], d)
+    return server_apply(cfg, sp, z, batch)
+
+
+def _server_xent(cfg: ModelConfig, logits, aux, batch):
+    return L.softmax_xent(logits, batch["label"]) + cfg.router_aux_coef * aux
+
+
+def server_split_loss(cfg: ModelConfig, server_params: Params, z, batch):
+    """The server branch's loss over an already-split server view."""
+    logits, aux = server_apply(cfg, server_params, z, batch)
+    return _server_xent(cfg, logits, aux, batch)
+
+
+def predict(cfg: ModelConfig, params: Params, batch):
+    """Global-model logits: every stack row, then the server head."""
+    Lfull = cfg.split_stack_len
+    z, _ = prefix_apply(cfg, params, batch, Lfull)
+    logits, _ = suffix_apply(cfg, params, z, batch, Lfull)
+    return logits
+
+
+def local_predict(cfg: ModelConfig, params: Params, batch, d: int):
+    """Client-side inference: depth-``d`` prefix + the phi head in
+    ``params`` (callers overlay a client's phi_i on the global tree)."""
+    z, _ = prefix_apply(cfg, params, batch, d)
+    return local_logits(cfg, params, z)

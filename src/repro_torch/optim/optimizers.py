@@ -1,0 +1,140 @@
+"""Minimal tree optimizers, the port of the JAX package's
+``optim/optimizers.py``.
+
+API mirrors optax: ``opt.init(params) -> state``,
+``opt.update(grads, state, params) -> (updates, state)``, then
+``apply_updates``. All arithmetic is fp32.
+
+State-shape contract (the federated strategies persist the shared server
+branch's moments across rounds in ``TrainState.opt_state``): an optimizer
+state is either an empty tuple (stateless) or a flat dict whose entries
+are
+
+  * *moment entries* — trees mirroring the ``params`` tree exactly
+    (``"mu"`` for momentum, ``"m"``/``"v"`` for AdamW), or
+  * *bookkeeping entries* — scalars and counters (AdamW's int32 ``"t"``).
+
+``map_moments`` tells the two apart structurally. The FedOpt servers
+(``fedadam``, ``fedyogi``) come with the baselines (ROADMAP queue 1, item 3).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map, tree_structure
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], Any]
+
+
+def get_optimizer(name: str, lr: float, **kw) -> "Optimizer":
+    """Resolve an optimizer by name. Identical (name, lr, kw) resolve to
+    the SAME instance, as in the reference."""
+    if name not in _OPTIMIZERS:
+        if name in ("fedadam", "fedyogi"):
+            raise NotImplementedError(
+                f"optimizer {name!r}: the FedOpt servers come with the "
+                "baselines (ROADMAP queue 1, item 3)")
+        raise KeyError(f"unknown optimizer {name!r}; "
+                       f"available: {sorted(_OPTIMIZERS)}")
+    return _cached_optimizer(name, lr, tuple(sorted(kw.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_optimizer(name: str, lr: float, kw_items: tuple) -> "Optimizer":
+    return _OPTIMIZERS[name](lr, **dict(kw_items))
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def map_moments(fn: Callable[[Any], Any], state, params):
+    """Apply ``fn`` to each moment entry of an optimizer ``state`` (an
+    entry whose tree structure equals that of ``params``); bookkeeping
+    entries and stateless ``()`` states pass through untouched."""
+    if not isinstance(state, dict):
+        return state
+    pdef = tree_structure(params)
+    return {k: fn(v) if tree_structure(v) == pdef else v
+            for k, v in state.items()}
+
+
+def sgd(lr: float) -> Optimizer:
+    """Plain SGD: ``p <- p - lr * g``. Stateless (state is ``()``)."""
+    def init(params):
+        return ()
+
+    def update(grads, state, params=None):
+        return tree_map(lambda g: -lr * g, grads), state
+
+    return Optimizer(init, update)
+
+
+def sgd_momentum(lr: float, momentum: float = 0.9) -> Optimizer:
+    """Heavy-ball momentum, fp32 accumulator:
+
+        mu <- momentum * mu + g
+        p  <- p - lr * mu
+    """
+    def init(params):
+        return {"mu": tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
+
+    def update(grads, state, params=None):
+        mu = tree_map(lambda m, g: momentum * m + g.float(),
+                      state["mu"], grads)
+        return tree_map(lambda m: -lr * m, mu), {"mu": mu}
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0,
+          moment_dtype: torch.dtype = torch.float32) -> Optimizer:
+    """Decoupled-weight-decay Adam (Loshchilov & Hutter):
+
+        t <- t + 1
+        m <- b1 * m + (1 - b1) * g          (stored in ``moment_dtype``)
+        v <- b2 * v + (1 - b2) * g^2
+        p <- p - lr * [ (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)
+                        + weight_decay * p ]
+
+    ``t`` is an int32 bookkeeping counter, not a moment entry.
+    """
+    def init(params):
+        z = lambda p: torch.zeros_like(p, dtype=moment_dtype)
+        leaves = tree_leaves(params)
+        dev = leaves[0].device if leaves else "cpu"
+        return {"m": tree_map(z, params), "v": tree_map(z, params),
+                "t": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(grads, state, params):
+        t = state["t"] + 1
+        tf = t.float()
+        m = tree_map(lambda m_, g: (b1 * m_.float() + (1 - b1) * g.float()
+                                    ).to(moment_dtype), state["m"], grads)
+        v = tree_map(lambda v_, g: (b2 * v_.float() + (1 - b2)
+                                    * g.float().square()
+                                    ).to(moment_dtype), state["v"], grads)
+        c1 = 1.0 - torch.pow(b1, tf)
+        c2 = 1.0 - torch.pow(b2, tf)
+
+        def upd(m_, v_, p):
+            step = (m_.float() / c1) / (torch.sqrt(v_.float() / c2) + eps)
+            if weight_decay:
+                step = step + weight_decay * p.float()
+            return -lr * step
+
+        updates = tree_map(upd, m, v, params)
+        return updates, {"m": m, "v": v, "t": t}
+
+    return Optimizer(init, update)
+
+
+_OPTIMIZERS = {"sgd": sgd, "sgd_momentum": sgd_momentum, "adamw": adamw}
