@@ -11,18 +11,28 @@ Phases, one JSON line each (plus the card's name and power limit as
   1. environment — card, power limit, torch and CUDA versions; TF32 off;
   2. build — every CUDA kernel of the port, one ``nvcc`` per source, all
      started together, from ``src/repro_torch/csrc``;
-  3. kernels — each kernel's wrapper against its plain PyTorch version on
-     the card at the main path's shapes (and ragged, unaligned and bf16
-     cases), with times from CUDA events: kernel, plain version, one
+  3. kernels — each kernel's wrapper (``fuse``, ``aggregate``,
+     ``tier_sum``, ``sumsq``) against its plain PyTorch version on the card
+     at the main paths' shapes (and ragged, unaligned, zero-weight and
+     bf16 cases), with times from CUDA events: kernel, plain version, one
      PyTorch library call where one computes the same function, and the
      bound (bytes over 3.35 TB/s vs operations over 67 TFLOP/s fp32);
   4. main path — full-width ViT-16-CIFAR trained by ``ssfl`` for two rounds
      through ``repro_torch.federated.Engine`` with the kernels on
      (``use_pallas=True``), then evaluated with the global head and the
-     local ensemble; every kernel's launch count must be > 0. The same run
+     local ensemble; ``fuse`` and ``aggregate`` must launch. The same run
      with the kernels off must agree (round losses and final parameters
      within 1e-4). A profiled extra round reports device time by kernel;
-  5. the ``kernels`` summary line.
+  5. width path — the same fleet on the width ladder (0.25, 0.5, 0.75,
+     1.0) with ``cross_tier="fused"``: two mixed-width cohorts, so
+     ``fuse``, ``aggregate`` and ``tier_sum`` must launch; kernels off
+     must agree within 1e-4; both heads evaluate; a profiled round;
+  6. clip path — ``fuse_tree(tau=0.5)`` (the Phase-1 clip fused into
+     Eq. 4) over the depth-10 client's gradient shapes: ``sumsq`` and
+     ``fuse`` must launch, and the result must match
+     ``clip_by_global_l2`` + ``fuse_gradients`` (rtol 1e-4, atol 1e-6);
+  7. the ``kernels`` summary line; each kernel's ``launches`` come from
+     the path named beside it (counts set to 0 just before that path).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it; so does a machine without a CUDA device, and a
@@ -43,6 +53,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 ROUNDS = 2
+LADDER = (0.25, 0.5, 0.75, 1.0)     # the width path's supernet tiers
+PORT_KERNELS = ("fuse_kernel", "aggregate_kernel", "tier_sum_kernel",
+                "sumsq_partial_kernel", "sumsq_final_kernel")
 
 
 def emit(obj) -> None:
@@ -60,21 +73,27 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, *, warmup: int = 3, reps: int = 25) -> float:
-    """Median of ``reps`` CUDA-event-timed calls after ``warmup`` calls."""
+def time_ms(fn, *, warmup: int = 3, reps: int = 20,
+            samples: int = 5) -> float:
+    """Device time of one call: CUDA events around ``reps`` back-to-back
+    calls (so the host's enqueue time hides behind the device's work),
+    divided by ``reps``; the median of ``samples`` such runs, after
+    ``warmup`` calls."""
     import torch
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        per_call.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call)
 
 
 # --------------------------------------------------------------- phase 1
@@ -137,10 +156,10 @@ def phase_fuse(client_shape):
         for shape in (client_shape, (4, 7, 13)):
             a = torch.randn(shape, generator=gen, device=dev).to(dtype)
             b = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            for cs in (1.0, 0.7):
+            for cs in (1.0, 0.7, torch.full((), 0.3, device=dev)):
                 got = O.fuse_leaf(a, b, w, cs)
                 want = R.fuse(a, b, w, cs)
-                key = f"{tuple(shape)}/{str(dtype)[6:]}/cs={cs}"
+                key = f"{tuple(shape)}/{str(dtype)[6:]}/cs={float(cs)}"
                 checks[key] = _check(f"fuse {key}", got, want, tol, tol)
     # an unaligned leaf (offset by one element) takes the scalar loop
     flat = torch.randn(4 * 7 * 13 + 1, generator=gen, device=dev)
@@ -152,9 +171,11 @@ def phase_fuse(client_shape):
 
     a = torch.randn(client_shape, generator=gen, device=dev)
     b = torch.randn(client_shape, generator=gen, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
     n = a.numel()
-    ms = time_ms(lambda: O.fuse_leaf(a, b, w))
-    plain_ms = time_ms(lambda: R.fuse(a, b, w, 1.0))
+    # as fuse_tree calls it: weight and clip scale already on the device
+    ms = time_ms(lambda: O.fuse_leaf(a, b, w, one))
+    plain_ms = time_ms(lambda: R.fuse(a, b, w, one))
     library_ms = time_ms(lambda: torch.lerp(b, a, w))   # b + w·(a − b)
     bound_ms, bound_by = bound(12.0 * n, 4.0 * n)
     row = {"name": "fuse", "route": "cuda",
@@ -225,16 +246,103 @@ def phase_aggregate(n_clients, n_layers, feat):
     return row
 
 
+def phase_tier_sum(shape):
+    import torch
+    from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev = "cuda"
+    checks = {}
+
+    def case(key, T, shp, zero_last=False, offset=False):
+        xs = [torch.randn(shp, generator=gen, device=dev) for _ in range(T)]
+        if offset:      # an unaligned leaf takes the scalar loop
+            flat = torch.randn(xs[0].numel() + 1, generator=gen, device=dev)
+            xs[0] = flat[1:].view(shp)
+        w = torch.rand(T, generator=gen, device=dev) * 2
+        if zero_last:
+            w[-1] = 0.0
+        checks[key] = _check(f"tier_sum {key}", O.tier_sum_leaf(xs, w),
+                             R.tier_sum(xs, list(w)), 0.0, 0.0)
+
+    case(f"{tuple(shape)}/T=2", 2, shape)
+    case(f"{tuple(shape)}/T=2/zero-weight", 2, shape, zero_last=True)
+    case("(4, 7, 13)/T=3/ragged", 3, (4, 7, 13))
+    case("(4, 7, 13)/T=3/unaligned", 3, (4, 7, 13), offset=True)
+    case("(1000,)/T=1", 1, (1000,))
+    case("(33, 65)/T=4/zero-weight", 4, (33, 65), zero_last=True)
+    torch.cuda.synchronize()
+
+    T = 2
+    xs = [torch.randn(shape, generator=gen, device=dev) for _ in range(T)]
+    w = torch.rand(T, generator=gen, device=dev)
+    n = xs[0].numel()
+    ms = time_ms(lambda: O.tier_sum_leaf(xs, w))
+    plain_ms = time_ms(lambda: R.tier_sum(xs, list(w)))
+    stacked = torch.stack(xs)             # outside the timed call
+    library_ms = time_ms(lambda: torch.tensordot(w, stacked, dims=1))
+    del stacked
+    bound_ms, bound_by = bound(4.0 * (T + 1) * n, (2.0 * T - 1) * n)
+    row = {"name": "tier_sum", "route": "cuda",
+           "source": "src/repro_torch/csrc/tpgf_fusion.cu",
+           "replaces": "src/repro/kernels/tpgf_fusion/kernel.py:64",
+           "shape": [T] + list(shape), "dtype": "float32",
+           "max_abs_err": checks[f"{tuple(shape)}/T=2"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library_call": "torch.tensordot(w, X, dims=1) on a pre-stacked "
+                           "X (the stack is not timed)"}
+    emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
+    return row
+
+
+def phase_sumsq(cfg, d_max):
+    import torch
+    from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    checks = {}
+    shape = (d_max, cfg.d_model, cfg.d_ff)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shp in (shape, (4, 7, 13), (1,)):
+            x = torch.randn(shp, generator=gen, device=dev).to(dtype)
+            a, b = O.sumsq_leaf(x), O.sumsq_leaf(x)
+            key = f"{tuple(shp)}/{str(dtype)[6:]}"
+            if not torch.equal(a, b):
+                die(f"sumsq {key}: two calls on one input differ "
+                    f"({float(a)!r} vs {float(b)!r})")
+            checks[key] = _check(f"sumsq {key}", a, R.sumsq(x), 1e-5, 0.0)
+    torch.cuda.synchronize()
+
+    x = torch.randn(shape, generator=gen, device=dev)
+    n = x.numel()
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    ms = time_ms(lambda: O.sumsq_leaf(x, total))
+    plain_ms = time_ms(lambda: R.sumsq(x))
+    flat = x.view(-1)
+    library_ms = time_ms(lambda: torch.dot(flat, flat))
+    bound_ms, bound_by = bound(4.0 * n, 2.0 * n)
+    row = {"name": "sumsq", "route": "cuda",
+           "source": "src/repro_torch/csrc/tpgf_fusion.cu",
+           "replaces": "src/repro/kernels/tpgf_fusion/kernel.py:100",
+           "shape": list(shape), "dtype": "float32",
+           "max_abs_err": checks[f"{tuple(shape)}/float32"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library_call": "torch.dot(x.view(-1), x.view(-1))"}
+    emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
+    return row
+
+
 # --------------------------------------------------------------- phase 4
-def _engine(cfg):
+def _engine(cfg, **kw):
     from repro_torch.federated import Engine
     return Engine(cfg, 8, "ssfl", seed=0, lr=0.05, local_steps=2,
-                  batch_size=32, availability=0.9, device="cuda")
+                  batch_size=32, availability=0.9, device="cuda", **kw)
 
 
-def _run(cfg, label):
+def _run(cfg, label, **kw):
     import torch
-    eng = _engine(cfg)
+    eng = _engine(cfg, **kw)
     recs = []
     for _ in range(ROUNDS):
         torch.cuda.synchronize()
@@ -249,21 +357,39 @@ def _run(cfg, label):
     return eng, recs
 
 
-def phase_main_path():
+def _wrappers():
+    from repro_torch.kernels.layer_aggregate.ops import aggregate_leaf
+    from repro_torch.kernels.tpgf_fusion.ops import (fuse_leaf, sumsq_leaf,
+                                                     tier_sum_leaf)
+    return {"fuse": fuse_leaf, "aggregate": aggregate_leaf,
+            "tier_sum": tier_sum_leaf, "sumsq": sumsq_leaf}
+
+
+def _zero_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def phase_path(name, must_launch, **engine_kw):
+    """Train the fleet two rounds with the kernels on, every launch count
+    set to 0 just before and read just after; then the same run with the
+    kernels off, which must launch nothing and agree within 1e-4; then a
+    profiled round. Returns (launches, the kernel-on engine)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core.supernet import split_params
-    from repro_torch.kernels.layer_aggregate.ops import aggregate_leaf
-    from repro_torch.kernels.tpgf_fusion.ops import fuse_leaf
     from repro_torch.tree import tree_flatten_with_path, tree_get
 
     cfg = get_config("vit16_cifar")
     torch.cuda.reset_peak_memory_stats()
-    fuse_leaf.launches = 0
-    aggregate_leaf.launches = 0
-    eng, recs = _run(cfg.replace(use_pallas=True), "kernels")
-    launches = {"fuse": fuse_leaf.launches,
-                "aggregate": aggregate_leaf.launches}
+    _zero_counts()
+    eng, recs = _run(cfg.replace(use_pallas=True), f"{name}/kernels",
+                     **engine_kw)
+    launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     n_clients = eng.state.n_clients
     param_mb = sum(x.numel() * x.element_size() for _, x in
@@ -274,42 +400,108 @@ def phase_main_path():
         tree_flatten_with_path(client_full)) / 2**20
     acc_global = eng.evaluate(head="global")
     acc_local = eng.evaluate(head="local")
-    for name, acc in (("global", acc_global), ("local", acc_local)):
+    for head, acc in (("global", acc_global), ("local", acc_local)):
         if not 0.0 <= acc <= 1.0:
-            die(f"evaluate(head={name}) gave {acc}")
-    emit({"phase": "main_path", "config": cfg.name,
+            die(f"{name}: evaluate(head={head}) gave {acc}")
+    emit({"phase": name, "config": cfg.name,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "clients": 8, "depths": eng.state.fleet.depths.tolist(),
-          "rounds": ROUNDS, "launches": launches,
+          "clients": n_clients, "depths": eng.state.fleet.depths.tolist(),
+          "widths": eng.state.fleet.widths.tolist(),
+          "cross_tier": eng.cross_tier, "rounds": ROUNDS,
+          "launches": launches,
           "accuracy_global": acc_global, "accuracy_local": acc_local,
           "params_mb": param_mb, "workspace_mb": workspace_mb,
           "peak_mem_gb": peak_gb})
-    if min(launches.values()) <= 0:
-        die(f"a kernel of the main path was never launched: {launches}")
+    missing = [k for k in must_launch if launches[k] <= 0]
+    if missing:
+        die(f"{name}: kernels of the path never launched: {missing} "
+            f"({launches})")
 
     # the same run through the plain versions must agree
-    fuse_leaf.launches = 0
-    aggregate_leaf.launches = 0
-    plain, precs = _run(cfg, "plain")
-    if fuse_leaf.launches or aggregate_leaf.launches:
-        die("use_pallas=False still launched a kernel")
+    _zero_counts()
+    plain, precs = _run(cfg, f"{name}/plain", **engine_kw)
+    if any(_counts().values()):
+        die(f"{name}: use_pallas=False still launched a kernel: "
+            f"{_counts()}")
     dloss = max(abs(a["loss"] - b["loss"]) for a, b in zip(recs, precs))
     dparam = 0.0
     for path, x in tree_flatten_with_path(eng.state.params):
         y = tree_get(plain.state.params, path)
         dparam = max(dparam, float((x - y).abs().max()))
     acc_plain = plain.evaluate(head="global")
-    emit({"phase": "agreement", "max_loss_diff": dloss,
+    emit({"phase": "agreement", "path": name, "max_loss_diff": dloss,
           "max_param_diff": dparam, "accuracy_global_plain": acc_plain})
     if dloss > 1e-4 or dparam > 1e-4:
-        die(f"kernel and plain runs disagree: loss {dloss}, params {dparam}")
+        die(f"{name}: kernel and plain runs disagree: loss {dloss}, "
+            f"params {dparam}")
     del plain
     torch.cuda.empty_cache()
-    _profile_round(eng, recs[-1]["wall_s"])
+    _profile_round(eng, recs[-1]["wall_s"], name)
+    return launches, eng
+
+
+def phase_clip_path(cfg, params, d):
+    """``fuse_tree(tau=0.5)`` on the depth-``d`` client's gradient shapes
+    (random trees, the clipped one scaled to a norm near 1 so the clip
+    scale is near 0.5): ``sumsq`` and ``fuse`` must launch, and the result
+    must match ``clip_by_global_l2`` + ``fuse_gradients``."""
+    import torch
+    from repro_torch.core import tpgf as T
+    from repro_torch.core.supernet import split_params
+    from repro_torch.kernels.tpgf_fusion import ops as O
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+
+    client = split_params(cfg, params, d)[0]
+    n = sum(x.numel() for x in tree_leaves(client))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    gc = tree_map(lambda x: torch.randn(x.shape, generator=gen,
+                                        device="cuda") / math.sqrt(n),
+                  client)
+    gs = tree_map(lambda x: torch.randn(x.shape, generator=gen,
+                                        device="cuda"), client)
+    w = torch.full((), 0.37, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = O.fuse_tree(gc, gs, w, tau=0.5)
+    torch.cuda.synchronize()
+    launches = _counts()
+    missing = [k for k in ("sumsq", "fuse") if launches[k] <= 0]
+    if missing:
+        die(f"clip_path: kernels of the path never launched: {missing}")
+    clipped, norm = T.clip_by_global_l2(gc, 0.5)
+    want = T.fuse_gradients(clipped, gs, w)
+    flat_want = dict(tree_flatten_with_path(want))
+    err = max(_check(f"fuse_tree(tau=0.5) {p}", x, flat_want[p], 1e-4,
+                     1e-6) for p, x in tree_flatten_with_path(got))
+
+    leaves = tree_leaves(gc)
+
+    def tree_sumsq():
+        total = torch.zeros((), dtype=torch.float32, device="cuda")
+        for leaf in leaves:
+            O.sumsq_leaf(leaf, total)
+        return total
+
+    sumsq_tree_ms = time_ms(tree_sumsq)
+    sumsq_tree_bound_ms, _ = bound(4.0 * n, 2.0 * n)
+    fuse_tree_ms = time_ms(lambda: O.fuse_tree(gc, gs, w, tau=0.5))
+    plain_ms = time_ms(lambda: T.fuse_gradients(
+        T.clip_by_global_l2(gc, 0.5)[0], gs, w))
+    emit({"phase": "clip_path", "depth": d, "leaves": len(leaves),
+          "elements": n, "launches": launches, "norm": float(norm),
+          "max_abs_err": err, "fuse_tree_ms": fuse_tree_ms,
+          "clip_then_fuse_plain_ms": plain_ms,
+          "sumsq_tree_ms": sumsq_tree_ms,
+          "sumsq_tree_bound_ms": sumsq_tree_bound_ms})
     return launches
 
 
-def _profile_round(eng, unprofiled_wall_s: float):
+def _is_port_kernel(name: str) -> bool:
+    """A profiler row of one of the port's CUDA kernels (``csrc/``)."""
+    return any(f"(anonymous namespace)::{k}" in name for k in PORT_KERNELS)
+
+
+def _profile_round(eng, unprofiled_wall_s: float, path: str):
     """One more round under torch.profiler: device time by kernel, and the
     device's idle share against the last unprofiled round's wall time."""
     import torch
@@ -337,15 +529,18 @@ def _profile_round(eng, unprofiled_wall_s: float):
     out = ROOT / "results"
     out.mkdir(exist_ok=True)
     if attr is not None:
-        (out / "chip_smoke_profile.txt").write_text(
+        (out / f"chip_smoke_profile_{path}.txt").write_text(
             averages.table(sort_by=attr, row_limit=60))
     unprofiled_ms = unprofiled_wall_s * 1e3
-    emit({"phase": "profile", "profiled_wall_ms": wall * 1e3,
+    emit({"phase": "profile", "path": path, "profiled_wall_ms": wall * 1e3,
           "device_busy_ms": busy_ms,
           "unprofiled_round_wall_ms": unprofiled_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / unprofiled_ms),
           "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
-                  for us, k, n in rows[:15]]})
+                  for us, k, n in rows[:15]],
+          "port_kernels": [{"kernel": k[:80], "device_ms": us / 1e3,
+                            "calls": n} for us, k, n in rows
+                           if _is_port_kernel(k)]})
 
 
 # ------------------------------------------------------------------- main
@@ -362,16 +557,37 @@ def main() -> None:
     import torch
     phase_build()
     from repro_torch.configs.base import get_config
+    from repro_torch.core.allocation import allocate_widths
     from repro_torch.federated.simulator import make_fleet
     cfg = get_config("vit16_cifar")
-    d_max = int(make_fleet(cfg, 8, seed=0).depths.max())
+    fleet = make_fleet(cfg, 8, seed=0)
+    d_max = int(fleet.depths.max())
+    # the server rows of the shallowest mixed-width cohort: tier_sum's
+    # largest leaf on the width path
+    widths = allocate_widths([p.mem_gb for p in fleet.profiles], LADDER)
+    d_mix = min(int(d) for d in set(fleet.depths.tolist())
+                if len(set(widths[fleet.depths == d])) > 1)
     rows = [phase_fuse((d_max, cfg.d_model, cfg.d_ff)),
-            phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff)]
+            phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff),
+            phase_tier_sum((cfg.n_layers - d_mix, cfg.d_model, cfg.d_ff)),
+            phase_sumsq(cfg, d_max)]
     torch.cuda.empty_cache()
-    launches = phase_main_path()
+    launches = {}
+    main_launches, eng = phase_path("main_path", ("fuse", "aggregate"))
+    launches["main_path"] = main_launches
+    launches["clip_path"] = phase_clip_path(cfg, eng.state.params, d_max)
+    del eng
+    torch.cuda.empty_cache()
+    launches["width_path"] = phase_path(
+        "width_path", ("fuse", "aggregate", "tier_sum"),
+        width_tiers=LADDER, cross_tier="fused")[0]
+    # each kernel's launches come from the path that carries it
+    carried_by = {"fuse": "main_path", "aggregate": "main_path",
+                  "tier_sum": "width_path", "sumsq": "clip_path"}
     for row in rows:
-        row["launches"] = launches[row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches",
+        row["path"] = carried_by[row["name"]]
+        row["launches"] = launches[row["path"]][row["name"]]
+    keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})

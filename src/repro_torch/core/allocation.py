@@ -6,9 +6,10 @@
 
 alpha = 0.5 layers/GB, beta = 4 (paper defaults). Profiles are reported
 once at initialization (paper §II-A). The arithmetic is float32, as the
-reference's, so a floor lands on the same side of an integer. The HASFL
-co-tuning and the width ladder (``co_tune``, ``allocate_widths``) come
-with later slices of the port.
+reference's, so a floor lands on the same side of an integer.
+``allocate_widths`` snaps memory budgets onto a supernet width ladder.
+The HASFL co-tuning (``co_tune``) comes with a later slice of the port
+(ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -53,3 +54,19 @@ def allocate_for_profiles(profiles, n_layers: int, *, alpha: float = 0.5,
     lat = np.array([p.lat_ms for p in profiles])
     return allocate_depths(mem, lat, n_layers, alpha=alpha, beta=beta,
                            eps=eps)
+
+
+def allocate_widths(mem_gb, tiers, *, mem_range=(2.0, 16.0)):
+    """Map client memory budgets onto a supernet width ladder ``tiers``
+    (e.g. ``(0.5, 0.75, 1.0)``): each budget is placed proportionally
+    within ``mem_range`` (the paper's §III-A profile range) and snapped to
+    a tier, the smallest devices to the narrowest slice. Returns float64
+    [N], the ``fleet.widths`` layout."""
+    tiers = sorted(float(t) for t in tiers)
+    if not tiers or not all(0.0 < t <= 1.0 for t in tiers):
+        raise ValueError(f"width tiers must be in (0, 1]: {tiers}")
+    mem = np.asarray(mem_gb, np.float64)
+    lo, hi = float(mem_range[0]), float(mem_range[1])
+    frac = np.clip((mem - lo) / max(hi - lo, 1e-9), 0.0, 1.0)
+    idx = np.minimum((frac * len(tiers)).astype(int), len(tiers) - 1)
+    return np.asarray(tiers, np.float64)[idx]

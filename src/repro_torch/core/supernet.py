@@ -6,8 +6,22 @@ input-side parameters (patch embedding, position embedding) that every
 client holds. ``split_params``/``merge_params`` give disjoint
 client | server | local views, so TPGF can take per-branch gradients.
 
-The width views (``width_cfg``, ``slice_width`` and the rest) come with
-the next slice of the port (ROADMAP queue 1: the width supernet).
+Beside depth, the supernet slices width (paper §II-A, Fig. 2): a width
+tier ``w in (0, 1]`` keeps the leading-channel prefix of every layer's
+MLP hidden dim and attention heads (whole GQA groups, so a kept query
+head never reads a pruned KV head). ``width_cfg`` gives the sliced
+config, ``width_plan`` the sliced (axis, keep) per leaf name, and the
+four views are:
+
+  slice  — take the kept prefix (the client's download; a view);
+  mask   — zero the pruned coordinates of a full tree;
+  widen  — zero-embed a sliced tree back to full shape
+           (``widen(slice(t)) == mask(t)``);
+  scatter— write a sliced tree into a full one, touching ONLY the kept
+           coordinates.
+
+The residual stream (``d_model``, the smashed data) is full width at
+every tier, so the server branch and the local head never slice.
 """
 from __future__ import annotations
 
@@ -39,14 +53,144 @@ def suffix(stack, d: int):
     return tree_map(lambda x: x[d:], stack)
 
 
-def split_params(cfg: ModelConfig, params: Params,
-                 d=None) -> Tuple[Params, Params, Params]:
+# --------------------------------------------------------------- width views
+
+def width_cfg(cfg: ModelConfig, width: float) -> ModelConfig:
+    """The sliced ``ModelConfig`` of width tier ``width``: ``Kw = max(1,
+    round(w * n_kv_heads))`` KV heads, ``(n_heads // n_kv_heads) * Kw``
+    query heads, ``max(1, round(w * d_ff))`` hidden channels. ``head_dim``
+    is pinned (``resolved_head_dim`` would recompute it from the sliced
+    ``n_heads``)."""
+    if width >= 1.0:
+        return cfg
+    hd = cfg.resolved_head_dim
+    group = max(1, cfg.n_heads // max(1, cfg.n_kv_heads))
+    kv = max(1, int(round(width * cfg.n_kv_heads)))
+    dff = max(1, int(round(width * cfg.d_ff)))
+    return cfg.replace(n_heads=group * kv, n_kv_heads=kv, d_ff=dff,
+                       head_dim=hd)
+
+
+def width_plan(cfg: ModelConfig, width: float) -> Dict[str, Tuple[int, int]]:
+    """leaf name -> (axis, keep): the sliced axis (negative, so one plan
+    covers ``[...]``, ``[L, ...]`` and ``[N, L, ...]`` leaves) and the kept
+    prefix length. Names absent from the plan (norms, ``b_down``,
+    input-side and head parameters) live on the ``d_model`` residual
+    stream and stay full width."""
+    wcfg = width_cfg(cfg, width)
+    hd = cfg.resolved_head_dim
+    qh = wcfg.n_heads * hd
+    kvh = wcfg.n_kv_heads * hd
+    dff = wcfg.d_ff
+    return {
+        "wq": (-1, qh), "bq": (-1, qh),
+        "wk": (-1, kvh), "wv": (-1, kvh), "bk": (-1, kvh), "bv": (-1, kvh),
+        "wo": (-2, qh),
+        "w_gate": (-1, dff), "w_up": (-1, dff), "b_up": (-1, dff),
+        "w_down": (-2, dff),
+    }
+
+
+def _leaf_name(path) -> Any:
+    return path[-1]
+
+
+def _map_named(tree, fn, name=None):
+    """``fn(name, leaf)`` over a nested-dict tree; ``name`` is the key the
+    leaf sits under (its ``_leaf_name``)."""
+    if isinstance(tree, dict):
+        return {k: _map_named(v, fn, k) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def _map_width(cfg: ModelConfig, tree, width: float, fn):
+    """``fn(leaf, axis, keep)`` on every plan leaf, identity elsewhere."""
+    plan = width_plan(cfg, width)
+    return _map_named(tree, lambda name, x: fn(x, *plan[name])
+                      if name in plan else x)
+
+
+def slice_width(cfg: ModelConfig, tree, width: float):
+    """Kept-prefix view of a full-width tree (views, not copies)."""
+    if width >= 1.0:
+        return tree
+    return _map_width(cfg, tree, width,
+                      lambda x, ax, keep: x.narrow(x.dim() + ax, 0, keep))
+
+
+def mask_width(cfg: ModelConfig, tree, width: float):
+    """Zero the pruned coordinates of a full-width tree (NaN-safe)."""
+    if width >= 1.0:
+        return tree
+
+    def mask(x, ax, keep):
+        axis = x.dim() + ax
+        kept = torch.arange(x.shape[axis], device=x.device) < keep
+        kept = kept.reshape((-1,) + (1,) * (x.dim() - 1 - axis))
+        return torch.where(kept, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+    return _map_width(cfg, tree, width, mask)
+
+
+def widen_width(cfg: ModelConfig, tree, width: float):
+    """Zero-embed a sliced tree back to full width (``widen(slice(t)) ==
+    mask(t)``)."""
+    if width >= 1.0:
+        return tree
+    full = width_plan(cfg, 1.0)
+    plan = width_plan(cfg, width)
+
+    def widen(name, x):
+        if name not in plan:
+            return x
+        ax, keep = plan[name]
+        shape = list(x.shape)
+        shape[x.dim() + ax] = full[name][1]
+        out = x.new_zeros(shape)
+        out.narrow(x.dim() + ax, 0, keep).copy_(x)
+        return out
+
+    return _map_named(tree, widen)
+
+
+def scatter_width(cfg: ModelConfig, full_tree, sliced_tree, width: float):
+    """Write a sliced tree into a copy of a full-width one, touching ONLY
+    the kept coordinates of plan leaves; non-plan leaves are held whole by
+    the client, so they are replaced."""
+    if width >= 1.0:
+        return sliced_tree
+    plan = width_plan(cfg, width)
+
+    def walk(f, s, name):
+        if isinstance(f, dict):
+            return {k: walk(f[k], s[k], k) for k in f}
+        if name not in plan:
+            return s.to(f.dtype)
+        ax, keep = plan[name]
+        out = f.clone()
+        out.narrow(f.dim() + ax, 0, keep).copy_(s)
+        return out
+
+    return walk(full_tree, sliced_tree, None)
+
+
+def width_keep_sizes(cfg: ModelConfig, width: float) -> Dict[str, int]:
+    """leaf name -> kept prefix length (host-side, for the per-coordinate
+    denominators in ``core.aggregation``)."""
+    return {k: keep for k, (_, keep) in width_plan(cfg, width).items()}
+
+
+def split_params(cfg: ModelConfig, params: Params, d=None,
+                 width: float = 1.0) -> Tuple[Params, Params, Params]:
     """-> (client theta_i, server theta_s, local phi_i), disjoint views.
 
     An int ``d`` slices the depth window: the client stack holds rows
     ``[:d]`` and the server stack rows ``[d:]``. ``d=None`` keeps all
-    ``L`` rows on both sides (shape templates). The leaves are views of
-    ``params``, not copies.
+    ``L`` rows on both sides (shape templates). ``width < 1`` width-slices
+    the CLIENT stack only: the smashed data is full ``d_model``, so the
+    server suffix and the local head stay full width. The leaves are
+    views of ``params``, not copies.
     """
     sname = split_stack_name(cfg)
     client: Params = {}
@@ -56,7 +200,8 @@ def split_params(cfg: ModelConfig, params: Params,
         if k in _LOCAL_KEYS:
             local[k] = v
         elif k == sname:
-            client[k] = v if d is None else prefix(v, d)
+            client[k] = slice_width(cfg, v if d is None else prefix(v, d),
+                                    width)
             server[k] = v if d is None else suffix(v, d)
         elif k in _CLIENT_INPUT_KEYS and not (cfg.is_encdec and k == "embed"):
             client[k] = v
@@ -84,8 +229,10 @@ def merge_params(cfg: ModelConfig, client: Params, server: Params,
     return out
 
 
-def client_param_bytes(cfg: ModelConfig, params: Params, d: int) -> int:
-    """Size of a depth-``d`` subnetwork — the per-round download cost."""
-    client, _, local = split_params(cfg, params, d)
+def client_param_bytes(cfg: ModelConfig, params: Params, d: int,
+                       width: float = 1.0) -> int:
+    """Size of a (depth, width) subnetwork — the per-round download
+    cost."""
+    client, _, local = split_params(cfg, params, d, width)
     leaves = tree_leaves(client) + tree_leaves(local)
     return sum(int(x.numel()) * x.element_size() for x in leaves)

@@ -5,6 +5,8 @@ Phase 2 (server): suffix loss, server param grads, g_z returned to the
                   client, and the client backprop of g_z through the
                   encoder.
 Phase 3 (client): loss-weighted fusion (Eq. 3/4) of the two encoder grads.
+Cross-tier:       ``fuse_tiers`` fuses per-width-tier server updates into
+                  ONE full-width update (per-coordinate denominators).
 
 Both encoder gradients come from ONE client-prefix forward (Algorithm 2,
 line 13; the reference's single ``jax.vjp``): the smashed data ``z`` is
@@ -21,8 +23,11 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import aggregation as AGG
+from repro_torch.core import supernet as SN
 from repro_torch.models import model as M
-from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
+                              tree_unflatten)
 
 
 class TPGFSplitOut(NamedTuple):
@@ -109,42 +114,33 @@ def _leaf_params(tree):
     return [p for p, _ in flat], leaves
 
 
-def _unflatten(paths, leaves):
-    out: Dict[str, Any] = {}
-    for path, leaf in zip(paths, leaves):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
-
-
 def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
                      local_p, batch, d: int, *,
                      server_available=None) -> TPGFSplitOut:
     """TPGF over an already-split depth-``d`` subnetwork: ``client_p`` holds
-    stack rows ``[:d]``, ``server_p`` rows ``[d:]``. ``wcfg`` is the width
-    config of the client slice; the port has full width only so far."""
-    if wcfg != cfg:
-        raise NotImplementedError(
-            "width-sliced TPGF comes with the next slice of the port "
-            "(ROADMAP queue 1: the width supernet)")
+    stack rows ``[:d]`` (the ``split_params(cfg, params, d, width)`` client
+    view), ``server_p`` rows ``[d:]``. ``wcfg`` is the matching
+    ``supernet.width_cfg``: the client forward runs on the slice, while the
+    local head and the server suffix stay full width (the smashed data is
+    full ``d_model``). ``g_client`` comes back aligned with the slice."""
     d_s = cfg.split_stack_len - d
     c_paths, c_leaves = _leaf_params(client_p)
     s_paths, s_leaves = _leaf_params(server_p)
     l_paths, l_leaves = _leaf_params(local_p)
 
     # ---- one client-prefix forward (Algorithm 2, line 13)
-    z, aux_prefix = M.client_apply(cfg, _unflatten(c_paths, c_leaves), batch)
+    z, aux_prefix = M.client_apply(wcfg, tree_unflatten(c_paths, c_leaves),
+                                   batch)
     z_ = z.detach().requires_grad_(True)
 
     # ---- Phase 1: local supervision
-    loss_client = M.local_loss(cfg, _unflatten(l_paths, l_leaves), z_, batch)
+    loss_client = M.local_loss(cfg, tree_unflatten(l_paths, l_leaves), z_,
+                               batch)
     *g_local, gz_client = torch.autograd.grad(loss_client, l_leaves + [z_])
 
     # ---- Phase 2: server supervision
-    loss_server = M.server_split_loss(cfg, _unflatten(s_paths, s_leaves), z_,
-                                      batch)
+    loss_server = M.server_split_loss(
+        cfg, tree_unflatten(s_paths, s_leaves), z_, batch)
     *g_server, gz_server = torch.autograd.grad(loss_server, s_leaves + [z_])
 
     # client backprop of each branch's dL/dz through the one prefix graph
@@ -152,9 +148,9 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
                                          retain_graph=True)
     g_client_server = torch.autograd.grad(z, c_leaves,
                                           grad_outputs=gz_server)
-    g_client_local = _unflatten(c_paths, g_client_local)
-    g_client_server = _unflatten(c_paths, g_client_server)
-    g_server_params = _unflatten(s_paths, g_server)
+    g_client_local = tree_unflatten(c_paths, g_client_local)
+    g_client_server = tree_unflatten(c_paths, g_client_server)
+    g_server_params = tree_unflatten(s_paths, g_server)
 
     # ---- Phase 3: clip + loss-weighted fusion (Eqs. 3-4)
     g_client_local, _ = clip_by_global_l2(g_client_local, cfg.tpgf_clip)
@@ -166,5 +162,109 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
     w_c, g_server_params, g_client = _fault_degrade(
         server_available, w_c, g_server_params, g_client, g_client_local)
     return TPGFSplitOut(g_client, g_server_params,
-                        _unflatten(l_paths, g_local),
+                        tree_unflatten(l_paths, g_local),
                         loss_client, loss_server, w_c, aux_prefix)
+
+
+# ------------------------------------------------------- cross-tier fusion
+
+class TierUpdate(NamedTuple):
+    """One width tier's contribution to :func:`fuse_tiers`.
+
+    width  — host float in (0, 1]: the tier's width slice (1.0 = full);
+    weight — fp32 scalar (a device scalar is fine): the tier's mass, the
+             Eq. 6-style summed inverse fused losses of its live clients;
+             0 means the tier trained nobody and fuses as a no-op;
+    tree   — the tier's update tree on its width slice, or full width.
+    """
+    width: float
+    weight: Any
+    tree: Any
+
+
+def fuse_tiers(cfg: ModelConfig, tiers, *, base=None,
+               use_pallas: bool = False):
+    """Cross-tier TPGF: ONE full-width update from per-tier width slices.
+
+    Each tier's tree is zero-extended to full width (``widen_width``) and
+    fused per coordinate with the denominators of
+    ``aggregation.width_coord_masks``, so a coordinate is fused only over
+    the tiers that hold it:
+
+        fused[f] = sum_t ( w_t * m_t[f] / sum_u w_u * m_u[f] ) * x_t[f]
+
+    The normalizer divides BEFORE the multiply: a coordinate held by one
+    tier gets that tier's value exactly (``w/w == 1.0``) and a zero-weight
+    tier adds an exact ``+/-0``. Tiers are sorted by width first (stable
+    for equal widths), so the result does not depend on the caller's
+    order.
+
+    ``base=None`` fuses gradient-like trees: coordinates no tier holds
+    come out zero. With ``base`` (delta mode: the server branch and its
+    optimizer moments) the result is ``base + sum_t hw_t * (x_t - base)``,
+    and un-held coordinates keep ``base`` through a where-guard, so an
+    all-zero-weight cohort is a bit-exact no-op.
+
+    ``use_pallas`` sends the scalar-weight leaves through the ``tier_sum``
+    kernel; the per-coordinate leaves stay plain PyTorch.
+    """
+    if not tiers:
+        raise ValueError("fuse_tiers needs at least one tier")
+    tiers = sorted(tiers, key=lambda t: float(t.width))
+    widths = [float(t.width) for t in tiers]
+    lifted = [SN.widen_width(cfg, t.tree, t.width) for t in tiers]
+    flats = [tree_flatten_with_path(t) for t in lifted]
+    dev = flats[0][0][1].device
+    wts = [torch.as_tensor(t.weight, dtype=torch.float32, device=dev)
+           for t in tiers]
+
+    tot = wts[0]
+    for wt in wts[1:]:
+        tot = tot + wt
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    safe_tot = torch.where(tot > 0, tot, one)
+    coord = any(wi < 1.0 for wi in widths)
+    plan = SN.width_plan(cfg, 1.0)
+    masks = AGG.width_coord_masks(cfg, widths, device=dev) if coord else {}
+    wvec = torch.stack(wts) if coord else None
+    hws_full = [torch.where(tot > 0, wt / safe_tot, zero) for wt in wts]
+    hw_vec = torch.stack(hws_full) if use_pallas else None
+    base_leaves = (None if base is None else
+                   [x for _, x in tree_flatten_with_path(base)])
+
+    out = []
+    for i, (path, x0) in enumerate(flats[0]):
+        name = SN._leaf_name(path)
+        xs = [flat[i][1].float() for flat in flats]
+        b = None if base_leaves is None else base_leaves[i]
+        bf = None if b is None else b.float()
+        if coord and name in masks:
+            ax, F = plan[name]
+            axis = x0.dim() + ax
+            den = torch.einsum("t,tf->f", wvec, masks[name])       # [F]
+            sden = torch.where(den > 0, den, one)
+            shape = [1] * x0.dim()
+            shape[axis] = F
+            held = (den > 0).reshape(shape)
+            acc = None
+            for wt, mt, xf in zip(wts, masks[name], xs):
+                hw = (wt * mt / sden).reshape(shape)
+                term = hw * (xf if bf is None else xf - bf)
+                acc = term if acc is None else acc + term
+        else:
+            held = tot > 0
+            terms = xs if bf is None else [xf - bf for xf in xs]
+            if use_pallas:
+                from repro_torch.kernels.tpgf_fusion.ops import tier_sum_leaf
+                acc = tier_sum_leaf(terms, hw_vec)
+            else:
+                acc = None
+                for hw, term in zip(hws_full, terms):
+                    acc = hw * term if acc is None else acc + hw * term
+        if bf is None:
+            fused = torch.where(held, acc, zero)
+        else:
+            fused = torch.where(held, bf + acc, bf)
+        out.append(fused.to(x0.dtype if b is None else b.dtype))
+    return tree_unflatten([p for p, _ in flats[0]], out)

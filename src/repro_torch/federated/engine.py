@@ -29,10 +29,16 @@ for draw:
   seed + 13     — per-round client sampling (``sample_frac``)
   seed + 21     — client participation (the strategy's arrival process)
 
+Width supernet: ``width_tiers=(0.25, 0.5, 0.75, 1.0)`` snaps each
+client's memory budget onto the ladder (``allocate_widths``) into
+``fleet.widths``; ``cross_tier`` says how a mixed-width cohort's tiers
+meet on the shared server branch: ``"fused"`` (the paper's path, ONE
+``fuse_tiers`` update from one snapshot) or ``"chained"`` (each tier
+continues from the previous one's server branch, the comparator).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-queue item: ``mesh=`` (fleet sharding), ``sanitize=True``,
-``width_tiers=`` (the width supernet). Checkpoints (``save``/``restore``)
-come with a later slice (ROADMAP queue 1, item 4).
+queue item: ``mesh=`` (fleet sharding), ``sanitize=True``. Checkpoints
+(``save``/``restore``) come with a later slice (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import allocation as AL
 from repro_torch.core.fault import ArrivalProcess, AvailabilityModel
 from repro_torch.data.synthetic import as_device_data, make_federated_data
 from repro_torch.federated import metrics as MET
@@ -77,19 +84,19 @@ class Engine:
                  data=None, device_model: MET.DeviceModel = None,
                  alpha: float = 0.5, noise: float = 0.35,
                  mesh=None, sanitize: bool = False, width_tiers=None,
-                 device=None):
+                 cross_tier: str = "fused", device=None):
         assert 0.0 < sample_frac <= 1.0
         M.check_family(cfg)
+        if cross_tier not in ("fused", "chained"):
+            raise ValueError(
+                f"cross_tier={cross_tier!r}: expected 'fused' or 'chained'")
+        self.cross_tier = cross_tier
         if mesh is not None:
             raise NotImplementedError(
                 "Engine(mesh=): fleet sharding is ROADMAP queue 1, item 8")
         if sanitize:
             raise NotImplementedError(
                 "Engine(sanitize=True): ROADMAP queue 1, item 9")
-        if width_tiers is not None:
-            raise NotImplementedError(
-                "Engine(width_tiers=): the width supernet is the next slice "
-                "of the port (ROADMAP queue 1)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = (get_strategy(strategy)
@@ -104,6 +111,9 @@ class Engine:
         self.accountant = MET.Accountant(device_model)
         fleet = make_fleet(cfg, n_clients, seed=seed,
                            fixed_depth=self.strategy.fixed_depth(cfg))
+        if width_tiers is not None:
+            fleet.widths = AL.allocate_widths(
+                [p.mem_gb for p in fleet.profiles], width_tiers)
         self.strategy.prepare_fleet(cfg, fleet,
                                     device_model=self.accountant.dm)
         self.avail_model: ArrivalProcess = (
@@ -189,11 +199,12 @@ class Engine:
         n_tok = self.tokens_per_batch()
         cflops = MET.dense_train_flops(res.client_params, n_tok) \
             * self.local_steps
-        cost = {av: self.strategy.comm_cost(self, d, av)
+        cost = {av: self.strategy.comm_cost(self, d, av, ids)
                 for av in (True, False)}
-        for i in ids:
+        for j, i in enumerate(ids):
             prof = self.state.fleet.profiles[i]
-            nbytes, nmsg = cost[bool(ctx.avail[i])]
+            pbytes, nmsg = cost[bool(ctx.avail[i])]
+            nbytes = int(pbytes[j])
             t = cflops / dm.client_speed(prof.mem_gb) + dm.comm_time_s(
                 nbytes, prof.lat_ms, nmsg)
             stats.comm_bytes += nbytes
@@ -333,11 +344,14 @@ class EngineBuilder:
         return self
 
     def execution(self, *, device=None, mesh=None, sanitize: bool = False,
-                  width_tiers=None) -> "EngineBuilder":
-        """The device to run on (None = the card), plus the reference's
-        execution knobs that the port does not run yet."""
+                  width_tiers=None,
+                  cross_tier: str = "fused") -> "EngineBuilder":
+        """The device to run on (None = the card), the supernet width
+        ladder (e.g. ``(0.5, 1.0)``) and the cross-tier mode ("fused" or
+        "chained"), plus the reference's execution knobs that the port
+        does not run yet (``mesh``, ``sanitize``)."""
         self._kw.update(device=device, mesh=mesh, sanitize=sanitize,
-                        width_tiers=width_tiers)
+                        width_tiers=width_tiers, cross_tier=cross_tier)
         return self
 
     def build(self) -> Engine:

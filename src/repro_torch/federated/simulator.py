@@ -1,5 +1,5 @@
-"""Heterogeneous-fleet simulation state (profiles, depths, cohorts); numpy
-only, unchanged from the reference."""
+"""Heterogeneous-fleet simulation state (profiles, depths, width tiers,
+cohorts); numpy only, unchanged from the reference."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +17,7 @@ class Fleet:
     depths: np.ndarray            # [N] int — allocated subnetwork depths
     capacity: np.ndarray = None   # [N] int — Eq.1 depth the device CAN host
     feasible: np.ndarray = None   # [N] bool — depths[i] <= capacity[i]
+    widths: np.ndarray = None     # [N] float — supernet width tier in (0, 1]
 
     def __post_init__(self):
         if self.capacity is None:
@@ -25,6 +26,9 @@ class Fleet:
             # a rigid split deeper than the device's Eq.1 capacity cannot
             # be hosted — that client cannot participate
             self.feasible = self.depths <= self.capacity
+        if self.widths is None:
+            # full width: every cohort is one width group
+            self.widths = np.ones(len(self.profiles), np.float64)
 
     @property
     def n_clients(self) -> int:

@@ -11,7 +11,7 @@ method-specific pieces:
   fold_server  — fold a cohort's server-side result into the running
                  server view
   aggregate    — produce the next global params + the round's loss scalar
-  comm_cost    — per-client bytes and message count for the round
+  comm_cost    — per-client bytes and message counts for the round
 
 The port registers ``ssfl`` only so far; the reference's other strategies
 raise ``NotImplementedError`` naming their ROADMAP queue item.
@@ -117,8 +117,10 @@ class Strategy:
                             state.fleet.depths, ws["losses"], mask)
         return new_params, float(np.mean(losses[mask]))
 
-    def comm_cost(self, engine, d: int, available: bool) -> Tuple[int, int]:
-        """-> (total bytes on the wire this round, messages) per client."""
+    def comm_cost(self, engine, d: int, available: bool,
+                  ids) -> Tuple[np.ndarray, int]:
+        """-> (int64 [len(ids)] bytes on the wire this round, messages per
+        client) for the cohort ``ids`` of depth ``d``."""
         raise NotImplementedError
 
 
@@ -145,11 +147,14 @@ def fleet_workspace(engine) -> Dict[str, Any]:
 
 @torch.no_grad()
 def scatter_client_rows(cfg, ws: Dict[str, Any], ids, client_trees,
-                        d: int) -> None:
-    """Write each client's trained tree (stack rows ``[:d]``) into its row
-    of ``ws["client_stack"]``; stack rows ``[d:]`` are zeroed (presence
-    masks them out at aggregation)."""
+                        d: int, width: float = 1.0) -> None:
+    """Write each client's trained tree (stack rows ``[:d]``, sliced to
+    ``width``) into its row of ``ws["client_stack"]``, in place. Stack rows
+    ``[d:]`` and the pruned channels of a width slice are written as
+    zeros: presence masks the rows out at aggregation, and the
+    per-coordinate width denominators the channels."""
     sname = SN.split_stack_name(cfg)
+    plan = SN.width_plan(cfg, width) if width < 1.0 else {}
     buf = ws["client_stack"]
     for i, tree in zip(ids, client_trees):
         i = int(i)
@@ -157,7 +162,16 @@ def scatter_client_rows(cfg, ws: Dict[str, Any], ids, client_trees,
             if k == sname:
                 for path, x in tree_flatten_with_path(v):
                     dst = tree_get(buf[k], path)
-                    dst[i, :d].copy_(x)
+                    rows = dst[i, :d]
+                    name = SN._leaf_name(path)
+                    if name in plan:
+                        ax, keep = plan[name]
+                        axis = rows.dim() + ax
+                        rows.narrow(axis, 0, keep).copy_(x)
+                        rows.narrow(axis, keep,
+                                    rows.shape[axis] - keep).zero_()
+                    else:
+                        rows.copy_(x)
                     dst[i, d:].zero_()
             else:
                 buf[k][i].copy_(v)
@@ -180,9 +194,10 @@ def record_cohort(ws: Dict[str, Any], ids, losses) -> None:
     ws["trained"][idx] = True
 
 
-def split_param_counts(cfg, params, d: int):
-    """(client, server) parameter counts of the depth-``d`` split."""
-    c, s, _ = SN.split_params(cfg, params, d)
+def split_param_counts(cfg, params, d: int, width: float = 1.0):
+    """(client, server) parameter counts of the depth-``d``, width-``width``
+    split (views: no device work)."""
+    c, s, _ = SN.split_params(cfg, params, d, width)
     count = lambda t: sum(int(x.numel()) for x in tree_leaves(t))
     return count(c), count(s)
 

@@ -39,6 +39,18 @@ def tree_flatten_with_path(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     return [(prefix, tree)]
 
 
+def tree_unflatten(paths, leaves) -> dict:
+    """The nested-dict tree with ``leaves`` at ``paths``: the inverse of
+    ``tree_flatten_with_path`` for dict trees."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def tree_leaves(tree) -> List[Any]:
     return [leaf for _, leaf in tree_flatten_with_path(tree)]
 

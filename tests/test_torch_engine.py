@@ -164,7 +164,7 @@ def test_engine_needs_a_device_without_cuda(monkeypatch):
 @pytest.mark.parametrize("kw,match", [
     ({"strategy": "sfl"}, "item 3"),
     ({"strategy": "hasfl"}, "item 5"),
-    ({"width_tiers": (0.5, 1.0)}, "width supernet"),
+    ({"strategy": "fedavg"}, "item 3"),
     ({"mesh": object()}, "item 8"),
     ({"sanitize": True}, "item 9"),
 ])

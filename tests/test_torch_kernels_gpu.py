@@ -8,6 +8,9 @@ one card:
 Tolerances: fp32 1e-6 relative for ``fuse`` (it rounds each product on
 its own, as the plain formula does) and 1e-5 for ``aggregate`` (it sums
 clients in order, the plain version's einsum in another order); bf16 2e-2.
+``tier_sum`` is bit-exact (it adds in the plain version's order);
+``sumsq`` within 1e-5 relative (another summation order) and the same
+bits on two calls.
 """
 import pytest
 
@@ -41,6 +44,83 @@ def test_fuse_kernel_matches_plain(cuda, shape, dtype, tol):
     assert O.fuse_leaf.launches == before + 1
     torch.testing.assert_close(got.float(), R.fuse(a, b, w, 0.7).float(),
                                rtol=tol, atol=tol)
+
+
+def test_fuse_kernel_reads_a_device_clip_scale(cuda):
+    from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn((5, 131), generator=g, device=cuda)
+    b = torch.randn((5, 131), generator=g, device=cuda)
+    w = torch.tensor(0.6, device=cuda)
+    cs = torch.tensor(0.25, device=cuda)
+    got = O.fuse_leaf(a, b, w, cs)
+    torch.testing.assert_close(got, R.fuse(a, b, w, cs), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        O.fuse_leaf(a, b, w, torch.ones(2, device=cuda))
+
+
+@pytest.mark.parametrize("T,shape", [(1, (7,)), (2, (1000,)),
+                                     (3, (33, 65)), (4, (256, 128)),
+                                     (8, (3, 48, 96))])
+def test_tier_sum_kernel_matches_plain_bit_for_bit(cuda, T, shape):
+    from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    g = torch.Generator(device=cuda).manual_seed(3)
+    leaves = [torch.randn(shape, generator=g, device=cuda) for _ in range(T)]
+    w = torch.rand(T, generator=g, device=cuda) * 2
+    w[-1] = 0.0
+    before = O.tier_sum_leaf.launches
+    got = O.tier_sum_leaf(leaves, w)
+    torch.cuda.synchronize()
+    assert O.tier_sum_leaf.launches == before + 1
+    assert torch.equal(got, R.tier_sum(leaves, list(w)))
+    # an unaligned leaf (offset by one element) takes the scalar loop
+    flat = torch.randn(leaves[0].numel() + 1, generator=g, device=cuda)
+    odd = [flat[1:].view(shape)] + leaves[1:]
+    assert torch.equal(O.tier_sum_leaf(odd, w), R.tier_sum(odd, list(w)))
+
+
+def test_tier_sum_kernel_checks_its_inputs(cuda):
+    from repro_torch.kernels.tpgf_fusion import ops as O
+    x = torch.zeros((4, 4), device=cuda)
+    with pytest.raises(ValueError):
+        O.tier_sum_leaf([x] * 9, torch.ones(9, device=cuda))
+    with pytest.raises(ValueError):
+        O.tier_sum_leaf([x, torch.zeros((4, 5), device=cuda)],
+                        torch.ones(2, device=cuda))
+    with pytest.raises(TypeError):
+        O.tier_sum_leaf([x.bfloat16()], torch.ones(1, device=cuda))
+    with pytest.raises(ValueError):
+        O.tier_sum_leaf([x.t()], torch.ones(1, device=cuda))
+
+
+@pytest.mark.parametrize("shape", [(7,), (1000,), (33, 65), (10, 768, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sumsq_kernel_matches_plain_and_is_deterministic(cuda, shape, dtype):
+    from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    before = O.sumsq_leaf.launches
+    a = O.sumsq_leaf(x)
+    b = O.sumsq_leaf(x)
+    torch.cuda.synchronize()
+    assert O.sumsq_leaf.launches == before + 2
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, R.sumsq(x), rtol=1e-5, atol=0)
+
+
+def test_fuse_tree_with_tau_matches_clip_and_fuse(cuda):
+    from repro_torch.core import tpgf as T
+    from repro_torch.kernels.tpgf_fusion import ops as O
+    g = torch.Generator(device=cuda).manual_seed(5)
+    gc = {"a": torch.randn((17, 9), generator=g, device=cuda),
+          "b": {"c": torch.randn((3, 48, 96), generator=g, device=cuda)}}
+    gs = {"a": torch.randn((17, 9), generator=g, device=cuda),
+          "b": {"c": torch.randn((3, 48, 96), generator=g, device=cuda)}}
+    w = torch.tensor(0.4, device=cuda)
+    got = O.fuse_tree(gc, gs, w, tau=0.5)
+    clipped, _ = T.clip_by_global_l2(gc, 0.5)
+    want = T.fuse_gradients(clipped, gs, w)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
 
 
 def test_fuse_kernel_checks_its_inputs(cuda):

@@ -1,5 +1,5 @@
-"""TPGF (Alg. 2) in the port against the JAX package, and the ``fuse``
-kernel's plain version against the reference's Pallas kernel.
+"""TPGF (Alg. 2) in the port against the JAX package, and the ``fuse`` and
+``sumsq`` kernels' plain versions against the reference's Pallas kernels.
 
 ``tpgf_grads_split`` runs at d in {1, 2, 3} with the server reachable and
 unreachable; the JAX side takes its runtime-depth form over full-``L``
@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import base as JB  # noqa: E402
 from repro.core import supernet as JSN  # noqa: E402
 from repro.core import tpgf as JT  # noqa: E402
+from repro.kernels.tpgf_fusion import kernel as JFK  # noqa: E402
 from repro.kernels.tpgf_fusion import ops as JFO  # noqa: E402
 from repro.kernels.tpgf_fusion import ref as JFR  # noqa: E402
 from repro.models import model as JM  # noqa: E402
@@ -157,15 +158,50 @@ def test_fuse_plain_version_matches_pallas_kernel(shape, dtype):
 
 
 def test_fuse_tree_matches_fuse_gradients_and_refuses_tau():
+    """Without ``tau``: bit-exact to ``fuse_gradients``. With ``tau=0.5``
+    (the clip fused in through ``sumsq``): within the reference's own
+    tolerances of its ``fuse_tree(tau=0.5)`` (Pallas, interpret mode) and
+    of ``clip_by_global_l2`` + Eq. 4, at ``tests/test_kernels.py``'s
+    shapes. A negative ``tau`` is refused."""
     rng = np.random.default_rng(2)
-    gc = bridge.to_torch({"a": rng.normal(size=(17, 9)).astype(np.float32),
-                          "b": rng.normal(size=(64,)).astype(np.float32)})
-    gs = bridge.to_torch({"a": rng.normal(size=(17, 9)).astype(np.float32),
-                          "b": rng.normal(size=(64,)).astype(np.float32)})
+    shapes = {"a": (17, 9), "b": (64,)}
+    gc_np = {k: rng.normal(size=s).astype(np.float32)
+             for k, s in shapes.items()}
+    gs_np = {k: rng.normal(size=s).astype(np.float32)
+             for k, s in shapes.items()}
+    gc, gs = bridge.to_torch(gc_np), bridge.to_torch(gs_np)
     w = torch.tensor(0.4)
     got = TFO.fuse_tree(gc, gs, w)
     want = TT.fuse_gradients(gc, gs, w)
     for k in ("a", "b"):
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy())
-    with pytest.raises(NotImplementedError, match="sumsq_2d"):
-        TFO.fuse_tree(gc, gs, w, tau=0.5)
+    before = TFO.sumsq_leaf.launches
+    got = TFO.fuse_tree(gc, gs, w, tau=0.5)
+    assert TFO.sumsq_leaf.launches == before    # CPU: plain version
+    want_kernel = JFO.fuse_tree(jax.tree.map(jnp.asarray, gc_np),
+                                jax.tree.map(jnp.asarray, gs_np),
+                                jnp.float32(0.4), tau=0.5)
+    clipped, _ = TT.clip_by_global_l2(gc, 0.5)
+    want_plain = TT.fuse_gradients(clipped, gs, w)
+    for k in ("a", "b"):
+        for want in (np.asarray(want_kernel[k]), want_plain[k].numpy()):
+            np.testing.assert_allclose(got[k].numpy(), want, rtol=1e-4,
+                                       atol=1e-6)
+    with pytest.raises(ValueError, match="tau"):
+        TFO.fuse_tree(gc, gs, w, tau=-1.0)
+
+
+def test_sumsq_plain_version_matches_pallas_kernel():
+    rng = np.random.default_rng(42)
+    x = rng.normal(size=(1000,)).astype(np.float32)
+    t, _ = JFO._to_tiles(jnp.asarray(x))
+    want = float(JFK.sumsq_2d(t))
+    got = TFO.sumsq_leaf(torch.tensor(x))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+    assert float(got) == float(TFR.sumsq(torch.tensor(x)))
+    # the total accumulates in place, leaf after leaf
+    total = torch.zeros(())
+    for part in (x[:300], x[300:]):
+        TFO.sumsq_leaf(torch.tensor(part), total)
+    np.testing.assert_allclose(float(total), want, rtol=1e-5)
