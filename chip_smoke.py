@@ -12,11 +12,13 @@ Phases, one JSON line each (plus the card's name and power limit as
   2. build — every CUDA kernel of the port, one ``nvcc`` per source, all
      started together, from ``src/repro_torch/csrc``;
   3. kernels — each kernel's wrapper (``fuse``, ``aggregate``,
-     ``tier_sum``, ``sumsq``) against its plain PyTorch version on the card
-     at the main paths' shapes (and ragged, unaligned, zero-weight and
-     bf16 cases), with times from CUDA events: kernel, plain version, one
+     ``tier_sum``, ``sumsq``, ``flash_attention``) against its plain
+     PyTorch version on the card at the paths' shapes (and ragged,
+     unaligned, zero-weight, windowed, MQA, every head dim and bf16
+     cases), with times from CUDA events: kernel, plain version, one
      PyTorch library call where one computes the same function, and the
-     bound (bytes over 3.35 TB/s vs operations over 67 TFLOP/s fp32);
+     bound (bytes over 3.35 TB/s vs operations over the peak of their
+     type: 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16);
   4. main path — full-width ViT-16-CIFAR trained by ``ssfl`` for two rounds
      through ``repro_torch.federated.Engine`` with the kernels on
      (``use_pallas=True``), then evaluated with the global head and the
@@ -31,7 +33,19 @@ Phases, one JSON line each (plus the card's name and power limit as
      Eq. 4) over the depth-10 client's gradient shapes: ``sumsq`` and
      ``fuse`` must launch, and the result must match
      ``clip_by_global_l2`` + ``fuse_gradients`` (rtol 1e-4, atol 1e-6);
-  7. the ``kernels`` summary line; each kernel's ``launches`` come from
+  7. serve path — Llama-3.2-3B at full width in bf16 (28 layers, random
+     weights drawn on the card from a seed), the ViT engines freed first:
+     4 prompts of 2,048 tokens from ``synthetic_lm_batches`` prefilled
+     through ``launch.steps.make_prefill_step`` (``use_pallas=True``:
+     ``flash_attention`` must launch 28 times), then 32 greedy decode
+     steps through ``make_serve_step``. The same weights with the kernels
+     off must agree (prefill logits, and 32 decode steps fed the same
+     tokens), and decode from a 2,016-token prefill must reproduce the
+     full prefill's logits at positions 2016-2047 (both within
+     ``SERVE_LOGIT_TOL`` of the largest logit). Prints prefill and decode
+     times and rates, peak memory, the weights' init time, one profiled
+     prefill and one profiled decode step;
+  8. the ``kernels`` summary line; each kernel's ``launches`` come from
      the path named beside it (counts set to 0 just before that path).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -40,8 +54,10 @@ directory that holds this script without the port beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -52,10 +68,20 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 ROUNDS = 2
 LADDER = (0.25, 0.5, 0.75, 1.0)     # the width path's supernet tiers
 PORT_KERNELS = ("fuse_kernel", "aggregate_kernel", "tier_sum_kernel",
-                "sumsq_partial_kernel", "sumsq_final_kernel")
+                "sumsq_partial_kernel", "sumsq_final_kernel",
+                "flash_attention_f32_kernel", "flash_attention_bf16_kernel")
+SERVE_ARCH = "llama3_2_3b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# kernels on vs off, and decode vs the teacher-forced prefill, as
+# max |Δlogit| / max |logit|: both sides run bf16 through 28 layers, and
+# the flash kernel rounds its output to bf16 from another fp32 order than
+# plain attention, so single ulps of the bf16 residual stream differ; the
+# JAX package's own decode parity bound is 2e-3 in fp32 at 2 layers
+SERVE_LOGIT_TOL = 2e-2
 
 
 def emit(obj) -> None:
@@ -64,12 +90,26 @@ def emit(obj) -> None:
 
 def die(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
-    sys.exit(1)
+    end(1)
 
 
-def bound(nbytes: float, flops: float):
+def end(code: int) -> None:
+    """Exit now with ``code``, leaving nothing running. Every child this
+    script starts (``nvidia-smi``, one ``nvcc`` per source) has been waited
+    for before this is reached; the process ends without Python's
+    finalization, so no library's exit-time teardown (the profiler's CUPTI
+    state, the CUDA context, cuBLAS handles) runs after the result is out:
+    the card is released when the process is gone."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def bound(nbytes: float, flops: float, peak_flops_per_s: float):
+    """The least time (ms) the card could take: bytes over the memory
+    rate vs operations over ``peak_flops_per_s``, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak_flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -177,7 +217,7 @@ def phase_fuse(client_shape):
     ms = time_ms(lambda: O.fuse_leaf(a, b, w, one))
     plain_ms = time_ms(lambda: R.fuse(a, b, w, one))
     library_ms = time_ms(lambda: torch.lerp(b, a, w))   # b + w·(a − b)
-    bound_ms, bound_by = bound(12.0 * n, 4.0 * n)
+    bound_ms, bound_by = bound(12.0 * n, 4.0 * n, FP32_FLOPS_PER_S)
     row = {"name": "fuse", "route": "cuda",
            "source": "src/repro_torch/csrc/tpgf_fusion.cu",
            "replaces": "src/repro/kernels/tpgf_fusion/kernel.py:33",
@@ -232,7 +272,8 @@ def phase_aggregate(n_clients, n_layers, feat):
     plain_ms = time_ms(lambda: R.aggregate(c, ww, s, lam))
     library_ms = time_ms(lambda: torch.einsum("nl,nlf->lf", ww, c))
     bound_ms, bound_by = bound(4.0 * N * Lk * F + 8.0 * Lk * F + 4.0 * N * Lk,
-                               2.0 * N * Lk * F + 3.0 * Lk * F)
+                               2.0 * N * Lk * F + 3.0 * Lk * F,
+                               FP32_FLOPS_PER_S)
     row = {"name": "aggregate", "route": "cuda",
            "source": "src/repro_torch/csrc/layer_aggregate.cu",
            "replaces": "src/repro/kernels/layer_aggregate/kernel.py:34",
@@ -281,7 +322,8 @@ def phase_tier_sum(shape):
     stacked = torch.stack(xs)             # outside the timed call
     library_ms = time_ms(lambda: torch.tensordot(w, stacked, dims=1))
     del stacked
-    bound_ms, bound_by = bound(4.0 * (T + 1) * n, (2.0 * T - 1) * n)
+    bound_ms, bound_by = bound(4.0 * (T + 1) * n, (2.0 * T - 1) * n,
+                               FP32_FLOPS_PER_S)
     row = {"name": "tier_sum", "route": "cuda",
            "source": "src/repro_torch/csrc/tpgf_fusion.cu",
            "replaces": "src/repro/kernels/tpgf_fusion/kernel.py:64",
@@ -320,7 +362,7 @@ def phase_sumsq(cfg, d_max):
     plain_ms = time_ms(lambda: R.sumsq(x))
     flat = x.view(-1)
     library_ms = time_ms(lambda: torch.dot(flat, flat))
-    bound_ms, bound_by = bound(4.0 * n, 2.0 * n)
+    bound_ms, bound_by = bound(4.0 * n, 2.0 * n, FP32_FLOPS_PER_S)
     row = {"name": "sumsq", "route": "cuda",
            "source": "src/repro_torch/csrc/tpgf_fusion.cu",
            "replaces": "src/repro/kernels/tpgf_fusion/kernel.py:100",
@@ -329,6 +371,84 @@ def phase_sumsq(cfg, d_max):
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "library_call": "torch.dot(x.view(-1), x.view(-1))"}
+    emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
+    return row
+
+
+def _attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (q, k) pairs the masks leave, summed over the rows."""
+    total = 0
+    for r in range(Sq):
+        hi = min(r, Skv - 1) if causal else Skv - 1
+        lo = max(0, r - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_flash(shape):
+    """``flash_attention`` against its plain version on the card: the
+    serve path's shape in bf16 and fp32, a window, MQA, every head dim,
+    a ragged S and non-causal cases; timed at the serve path's shape in
+    bf16 beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as O, ref as R
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = "cuda"
+    B, S, H, K, hd = shape
+    tols = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+    cases = [(f"path/{B}x{S}x{H}x{K}x{hd}", (B, S, H, K, hd), True, 0),
+             ("window256", (1, S, H, K, hd), True, 256),
+             ("mqa", (2, 512, 8, 1, hd), True, 0),
+             ("hd32", (1, 256, 4, 2, 32), True, 0),
+             ("hd64", (1, 256, 4, 2, 64), True, 0),
+             ("hd128", (1, 256, 4, 2, 128), True, 0),
+             ("hd256", (1, 256, 4, 2, 256), True, 0),
+             ("ragged1000", (2, 1000, H, K, hd), True, 0),
+             ("noncausal", (1, 300, 4, 4, 64), False, 0),
+             ("noncausal_window100", (1, 300, 4, 4, 64), False, 100)]
+
+    def inputs(b, s, h, k, d, dtype):
+        return (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype),
+                torch.randn((b, s, k, d), generator=gen, device=dev).to(dtype),
+                torch.randn((b, s, k, d), generator=gen, device=dev).to(dtype))
+
+    checks = {}
+    with torch.no_grad():
+        for name, (b, s, h, k, d), causal, window in cases:
+            for dtype, tol in tols.items():
+                q, kk, v = inputs(b, s, h, k, d, dtype)
+                key = f"{name}/{str(dtype)[6:]}"
+                checks[key] = _check(
+                    f"flash_attention {key}",
+                    O.flash_attention(q, kk, v, causal=causal,
+                                      window=window),
+                    R.flash_attention_ref(q, kk, v, causal=causal,
+                                          window=window), tol, tol)
+                del q, kk, v
+        torch.cuda.synchronize()
+
+        q, kk, v = inputs(B, S, H, K, hd, torch.bfloat16)
+        ms = time_ms(lambda: O.flash_attention(q, kk, v, causal=True))
+        plain_ms = time_ms(lambda: R.flash_attention_ref(q, kk, v,
+                                                         causal=True))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True))
+    flops = 4.0 * hd * B * H * _attended_pairs(S, S, True, 0)
+    nbytes = 2.0 * (2 * q.numel() + kk.numel() + v.numel())
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
+           "shape": [B, S, H, K, hd], "dtype": "bfloat16",
+           "max_abs_err": checks[f"{cases[0][0]}/bfloat16"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library_call": "F.scaled_dot_product_attention(q, k, v "
+                           "transposed to [B, H, S, hd] views, "
+                           "is_causal=True, enable_gqa=True)",
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
     emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
     return row
 
@@ -358,11 +478,13 @@ def _run(cfg, label, **kw):
 
 
 def _wrappers():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.layer_aggregate.ops import aggregate_leaf
     from repro_torch.kernels.tpgf_fusion.ops import (fuse_leaf, sumsq_leaf,
                                                      tier_sum_leaf)
     return {"fuse": fuse_leaf, "aggregate": aggregate_leaf,
-            "tier_sum": tier_sum_leaf, "sumsq": sumsq_leaf}
+            "tier_sum": tier_sum_leaf, "sumsq": sumsq_leaf,
+            "flash_attention": flash_attention}
 
 
 def _zero_counts() -> None:
@@ -436,7 +558,7 @@ def phase_path(name, must_launch, **engine_kw):
             f"params {dparam}")
     del plain
     torch.cuda.empty_cache()
-    _profile_round(eng, recs[-1]["wall_s"], name)
+    _profile(eng.run_round, recs[-1]["wall_s"], name)
     return launches, eng
 
 
@@ -483,7 +605,8 @@ def phase_clip_path(cfg, params, d):
         return total
 
     sumsq_tree_ms = time_ms(tree_sumsq)
-    sumsq_tree_bound_ms, _ = bound(4.0 * n, 2.0 * n)
+    sumsq_tree_bound_ms, _ = bound(4.0 * n, 2.0 * n,
+                                   FP32_FLOPS_PER_S)
     fuse_tree_ms = time_ms(lambda: O.fuse_tree(gc, gs, w, tau=0.5))
     plain_ms = time_ms(lambda: T.fuse_gradients(
         T.clip_by_global_l2(gc, 0.5)[0], gs, w))
@@ -496,21 +619,165 @@ def phase_clip_path(cfg, params, d):
     return launches
 
 
+def _rel_logit_diff(got, want) -> float:
+    """max |got − want| / max |want|, in fp32, a slice of the batch at a
+    time (the full logits are [4, 2048, 128256])."""
+    num, den = 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        num = max(num, float((g - w).abs().max()))
+        den = max(den, float(w.abs().max()))
+    return num / den
+
+
+def phase_serve_path():
+    """Llama-3.2-3B at full width, bf16, served through the port's entry
+    points: prefill of 4 × 2,048 tokens (the flash kernel in every layer)
+    and 32 greedy decode steps; kernels off must agree, and decode must
+    reproduce the teacher-forced prefill. Returns the launch counts."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import synthetic_lm_batches
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import init_params, param_count
+
+    cfg = get_config(SERVE_ARCH).replace(use_pallas=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    batch = next(synthetic_lm_batches(cfg.vocab, SERVE_PROMPT, SERVE_BATCH,
+                                      1, seed=1))
+    toks = torch.as_tensor(batch["tokens"], device="cuda").long()
+    prefill = make_prefill_step(cfg, decode_budget=SERVE_GEN)
+    serve = make_serve_step(cfg)
+    V = cfg.vocab
+
+    def run_serve():
+        """prefill, then SERVE_GEN greedy steps; returns the prefill
+        logits, the tokens fed to decode, each step's logits and the two
+        walls."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": toks})
+        tok = logits[:, -1:, :V].argmax(dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fed, step_logits = [], []
+        for _ in range(SERVE_GEN):
+            fed.append(tok)
+            lg, cache = serve(params, cache, tok)
+            step_logits.append(lg)
+            tok = lg[:, :, :V].argmax(dim=-1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return logits, fed, step_logits, t1 - t0, t2 - t1
+
+    run_serve()                               # warm-up: cuBLAS, allocator
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    logits_on, fed, steps_on, prefill_s, decode_s = run_serve()
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if launches["flash_attention"] != cfg.n_layers:
+        die(f"serve_path: flash_attention launched "
+            f"{launches['flash_attention']} times in one prefill, expected "
+            f"{cfg.n_layers} ({launches})")
+    gen_tokens = torch.cat(fed, dim=1)
+    finite = bool(torch.isfinite(logits_on).all()) and all(
+        bool(torch.isfinite(x).all()) for x in steps_on)
+    if logits_on.shape != (SERVE_BATCH, SERVE_PROMPT, cfg.padded_vocab) \
+            or not finite:
+        die(f"serve_path: prefill logits {tuple(logits_on.shape)}, finite "
+            f"{finite}")
+    ntok = SERVE_BATCH * SERVE_PROMPT
+    emit({"phase": "serve_path", "config": cfg.name, "dtype": cfg.dtype,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "params": n_params,
+          "init_s": init_s, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+          "decode_steps": SERVE_GEN, "launches": launches,
+          "prefill_ms": prefill_s * 1e3,
+          "prefill_tokens_per_s": ntok / prefill_s,
+          "decode_ms_per_step": decode_s * 1e3 / SERVE_GEN,
+          "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s,
+          "peak_mem_gb": peak_gb,
+          "generated_req0": gen_tokens[0, :8].tolist()})
+
+    # kernels off: the same weights, prefill, then decode fed the SAME
+    # tokens (greedy argmax over random weights flips on bf16 noise)
+    off = cfg.replace(use_pallas=False)
+    _zero_counts()
+    logits_off, cache = make_prefill_step(off, decode_budget=SERVE_GEN)(
+        params, {"tokens": toks})
+    serve_off = make_serve_step(off)
+    steps_off = []
+    for tok in fed:
+        lg, cache = serve_off(params, cache, tok)
+        steps_off.append(lg)
+    if any(_counts().values()):
+        die(f"serve_path: use_pallas=False launched a kernel: {_counts()}")
+    d_prefill = _rel_logit_diff(logits_on, logits_off)
+    d_decode = _rel_logit_diff(torch.cat(steps_on, 1), torch.cat(steps_off, 1))
+    del logits_off, steps_off, cache
+
+    # the cache on the card: prefill SERVE_PROMPT − SERVE_GEN tokens, then
+    # decode the rest teacher-forced; step t's logits are position t's
+    n0 = SERVE_PROMPT - SERVE_GEN
+    _, cache = make_prefill_step(cfg, decode_budget=SERVE_GEN)(
+        params, {"tokens": toks[:, :n0]})
+    tf = []
+    for t in range(n0, SERVE_PROMPT):
+        lg, cache = serve(params, cache, toks[:, t:t + 1])
+        tf.append(lg)
+    d_cache = _rel_logit_diff(torch.cat(tf, 1), logits_on[:, n0:])
+    emit({"phase": "serve_agreement", "limit": SERVE_LOGIT_TOL,
+          "prefill_kernels_vs_plain": d_prefill,
+          "decode_kernels_vs_plain": d_decode,
+          "decode_vs_teacher_forced_prefill": d_cache,
+          "max_abs_logit": float(logits_on.float().abs().max())})
+    for name, d in (("prefill kernels vs plain", d_prefill),
+                    ("decode kernels vs plain", d_decode),
+                    ("decode vs teacher-forced prefill", d_cache)):
+        if not d <= SERVE_LOGIT_TOL:
+            die(f"serve_path: {name}: max |Δlogit| / max |logit| = {d} > "
+                f"{SERVE_LOGIT_TOL}")
+    del tf, cache, logits_on, steps_on
+    torch.cuda.empty_cache()
+    held = {}
+
+    def profiled_prefill():
+        held["out"] = prefill(params, {"tokens": toks})
+
+    _profile(profiled_prefill, prefill_s, "serve_prefill")
+    logits, cache = held.pop("out")
+    tok = logits[:, -1:, :V].argmax(dim=-1)
+    del logits
+    _profile(lambda: serve(params, cache, tok), decode_s / SERVE_GEN,
+             "serve_decode")
+    return launches
+
+
 def _is_port_kernel(name: str) -> bool:
     """A profiler row of one of the port's CUDA kernels (``csrc/``)."""
     return any(f"(anonymous namespace)::{k}" in name for k in PORT_KERNELS)
 
 
-def _profile_round(eng, unprofiled_wall_s: float, path: str):
-    """One more round under torch.profiler: device time by kernel, and the
-    device's idle share against the last unprofiled round's wall time."""
+def _profile(step, unprofiled_wall_s: float, path: str):
+    """One more call of ``step`` (a round, a prefill) under
+    torch.profiler: device time by kernel, and the device's idle share
+    against the wall time of the same step unprofiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.run_round()
+        step()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     averages = prof.key_averages()
@@ -532,15 +799,17 @@ def _profile_round(eng, unprofiled_wall_s: float, path: str):
         (out / f"chip_smoke_profile_{path}.txt").write_text(
             averages.table(sort_by=attr, row_limit=60))
     unprofiled_ms = unprofiled_wall_s * 1e3
+    port = [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
+            for us, k, n in rows if _is_port_kernel(k)]
     emit({"phase": "profile", "path": path, "profiled_wall_ms": wall * 1e3,
           "device_busy_ms": busy_ms,
-          "unprofiled_round_wall_ms": unprofiled_ms,
+          "unprofiled_wall_ms": unprofiled_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / unprofiled_ms),
           "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
                   for us, k, n in rows[:15]],
-          "port_kernels": [{"kernel": k[:80], "device_ms": us / 1e3,
-                            "calls": n} for us, k, n in rows
-                           if _is_port_kernel(k)]})
+          "port_kernels": port,
+          "port_kernels_share_of_busy": (sum(r["device_ms"] for r in port)
+                                         / busy_ms if busy_ms else 0.0)})
 
 
 # ------------------------------------------------------------------- main
@@ -567,10 +836,13 @@ def main() -> None:
     widths = allocate_widths([p.mem_gb for p in fleet.profiles], LADDER)
     d_mix = min(int(d) for d in set(fleet.depths.tolist())
                 if len(set(widths[fleet.depths == d])) > 1)
+    lm = get_config(SERVE_ARCH)
     rows = [phase_fuse((d_max, cfg.d_model, cfg.d_ff)),
             phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff),
             phase_tier_sum((cfg.n_layers - d_mix, cfg.d_model, cfg.d_ff)),
-            phase_sumsq(cfg, d_max)]
+            phase_sumsq(cfg, d_max),
+            phase_flash((SERVE_BATCH, SERVE_PROMPT, lm.n_heads,
+                         lm.n_kv_heads, lm.resolved_head_dim))]
     torch.cuda.empty_cache()
     launches = {}
     main_launches, eng = phase_path("main_path", ("fuse", "aggregate"))
@@ -581,9 +853,13 @@ def main() -> None:
     launches["width_path"] = phase_path(
         "width_path", ("fuse", "aggregate", "tier_sum"),
         width_tiers=LADDER, cross_tier="fused")[0]
+    gc.collect()                      # the ViT engines go before the LM
+    torch.cuda.empty_cache()
+    launches["serve_path"] = phase_serve_path()
     # each kernel's launches come from the path that carries it
     carried_by = {"fuse": "main_path", "aggregate": "main_path",
-                  "tier_sum": "width_path", "sumsq": "clip_path"}
+                  "tier_sum": "width_path", "sumsq": "clip_path",
+                  "flash_attention": "serve_path"}
     for row in rows:
         row["path"] = carried_by[row["name"]]
         row["launches"] = launches[row["path"]][row["name"]]
@@ -591,10 +867,21 @@ def main() -> None:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
+    # hand the card's memory back before the result, so that the exit
+    # after it has little left to tear down
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except BaseException:            # a traceback, then the same clean exit
+        import traceback
+        traceback.print_exc()
+        end(1)
+    end(0)

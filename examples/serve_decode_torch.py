@@ -1,0 +1,99 @@
+"""Serving example for the PyTorch/CUDA port: batched prefill + greedy
+autoregressive decode with the KV cache.
+
+The port's counterpart of ``examples/serve_decode.py``: one prefill over a
+batch of prompts (from ``synthetic_lm_batches``) with room for
+``--gen`` tokens, then token-by-token greedy decode over the first
+``vocab`` logits. Prefill runs the hand-written flash-attention kernel in
+every layer on a card (its plain version on the CPU); decode attends
+over the cache with plain attention.
+
+Run on the card (full-width Llama-3.2-3B, random weights from a seed):
+
+    PYTHONPATH=src python examples/serve_decode_torch.py llama3_2_3b
+
+or on the CPU with the reduced config (the kernels' plain versions):
+
+    PYTHONPATH=src python examples/serve_decode_torch.py llama3_2_3b \\
+        --reduced --device cpu --prompt 24 --gen 16
+"""
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.configs import base  # noqa: E402
+from repro_torch.data.synthetic import synthetic_lm_batches  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
+from repro_torch.models import model as M  # noqa: E402
+
+BATCH = 4
+
+
+def serve(cfg, params, prompts, gen_len: int):
+    """Prefill ``prompts`` [B, S] (a tensor on the params' device) with
+    room for ``gen_len`` tokens, then greedy-decode ``gen_len`` tokens.
+    Returns (generated [B, gen_len] numpy, cache, seconds of prefill,
+    seconds of decode)."""
+    prefill = make_prefill_step(cfg, decode_budget=gen_len)
+    step = make_serve_step(cfg)
+    dev = prompts.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok = logits[:, -1:, :cfg.vocab].argmax(dim=-1)
+    sync()
+    t1 = time.perf_counter()
+    outs = [tok]
+    for _ in range(gen_len - 1):
+        logits, cache = step(params, cache, tok)
+        tok = logits[:, :, :cfg.vocab].argmax(dim=-1)
+        outs.append(tok)
+    sync()
+    t2 = time.perf_counter()
+    gen = torch.cat(outs, dim=1).cpu().numpy()
+    return gen, cache, t1 - t0, t2 - t1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("arch", nargs="?", default="llama3_2_3b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the config's reduced() form")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--prompt", type=int, default=2048)
+    ap.add_argument("--gen", type=int, default=32)
+    args = ap.parse_args(argv)
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu (with "
+                           "--reduced) to run on the CPU")
+    cfg = (base.get_reduced if args.reduced else base.get_config)(args.arch)
+    cfg = cfg.replace(use_pallas=True)
+    gen = torch.Generator(device=args.device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen, device=args.device)
+    init_s = time.perf_counter() - t0
+    batch = next(synthetic_lm_batches(cfg.vocab, args.prompt, BATCH, 1,
+                                      seed=1))
+    prompts = torch.as_tensor(batch["tokens"].astype(np.int64),
+                              device=args.device)
+    out, cache, pre_s, dec_s = serve(cfg, params, prompts, args.gen)
+    print(f"arch={cfg.name}  device={args.device}  batch={BATCH}  "
+          f"prompt={args.prompt}  generated={out.shape[1]} tokens  "
+          f"window={cache['k'].shape[2]}")
+    print(f"init {init_s:.2f} s  prefill {pre_s * 1e3:.1f} ms  decode "
+          f"{dec_s * 1e3 / max(args.gen - 1, 1):.2f} ms/token")
+    for b in range(2):
+        print(f"  req{b}: {out[b].tolist()}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

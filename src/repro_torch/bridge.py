@@ -4,7 +4,8 @@ The JAX package initialises its weights from ``jax.random``, whose bits
 torch cannot reproduce; the port's ``init_params`` draws the same shapes
 and distributions from a ``torch.Generator``. To compute from the SAME
 weights on both sides, a caller turns the reference's trees into numpy
-arrays (on its side) and hands them to ``install_weights``. Only weights
+arrays (on its side) and hands them to ``install_weights`` (an engine)
+or ``to_model_params`` (a bare model). Only weights
 cross: the data, fleet, availability and batch-index streams are seeded
 numpy on both sides and already agree.
 
@@ -18,6 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.models.model import init_params, torch_dtype
 from repro_torch.tree import tree_flatten_with_path, tree_map
 
 
@@ -55,9 +57,22 @@ def _check_like(name: str, ref, new) -> None:
         missing = sorted(set(want) - set(got))
         extra = sorted(set(got) - set(want))
         shapes = sorted(p for p in set(want) & set(got) if want[p] != got[p])
-        raise ValueError(f"install_weights: {name} does not match the "
+        raise ValueError(f"{name} does not match the "
                          f"port's tree (missing {missing}, extra {extra}, "
                          f"shape mismatches {shapes})")
+
+
+def to_model_params(cfg, params: Dict[str, Any], device="cpu",
+                    dtype: torch.dtype = None) -> Dict[str, Any]:
+    """A reference model-params tree as numpy arrays -> the port's model
+    params on ``device``, in ``dtype`` (default: the config's). The tree
+    must have exactly the keys and shapes of the port's ``init_params``
+    for ``cfg``; every leaf is copied. The counterpart of
+    ``install_weights`` for a bare model, not an ``Engine``."""
+    like = init_params(cfg, None, device="meta")
+    _check_like("params", like, params)
+    dtype = dtype or torch_dtype(cfg)
+    return tree_map(lambda x: _leaf_to_torch(x, device, dtype), params)
 
 
 def install_weights(target, params: Dict[str, Any],

@@ -3,8 +3,10 @@
 Field for field the same dataclass as the JAX package's
 ``configs/base.py``, so a config built on either side has the same
 values. ``get_config``/``get_reduced`` resolve modules inside
-``repro_torch.configs``; the port carries only the ViT config so far
-(ROADMAP queue 1, item 6 adds the rest of the model zoo).
+``repro_torch.configs``. The port carries the ViT config and the four
+dense causal LMs (``llama3_2_3b``, ``qwen2_5_3b``, ``gemma_2b``,
+``internlm2_1_8b``), each with its ``reduced()`` form; the other
+families come with ROADMAP queue 1, item 6.
 """
 from __future__ import annotations
 

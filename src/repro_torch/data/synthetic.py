@@ -129,3 +129,20 @@ def make_federated_data(n_clients: int, *, n_classes: int = 10,
                                  image_size, seed=seed + 2, proto_seed=seed,
                                  noise=noise)
     return {"clients": clients, "test": test, "dataset": ds}
+
+
+def synthetic_lm_batches(vocab: int, seq_len: int, batch: int, steps: int,
+                         *, seed: int = 0):
+    """Markov-chain token stream (learnable LM data; the serving path's
+    prompts). The reference's numpy draws, in the same order."""
+    rng = np.random.default_rng(seed)
+    # sparse transition structure so a model can reduce loss below ln(V)
+    trans = rng.integers(0, vocab, (vocab, 4))
+    for _ in range(steps):
+        toks = np.empty((batch, seq_len + 1), np.int64)
+        toks[:, 0] = rng.integers(0, vocab, batch)
+        choices = rng.integers(0, 4, (batch, seq_len))
+        for t in range(seq_len):
+            toks[:, t + 1] = trans[toks[:, t], choices[:, t]]
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}

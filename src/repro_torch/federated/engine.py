@@ -86,7 +86,7 @@ class Engine:
                  mesh=None, sanitize: bool = False, width_tiers=None,
                  cross_tier: str = "fused", device=None):
         assert 0.0 < sample_frac <= 1.0
-        M.check_family(cfg)
+        M.check_trainable(cfg)
         if cross_tier not in ("fused", "chained"):
             raise ValueError(
                 f"cross_tier={cross_tier!r}: expected 'fused' or 'chained'")

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("tpgf_fusion", "layer_aggregate")
+KERNEL_SOURCES = ("tpgf_fusion", "layer_aggregate", "flash_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -58,27 +58,35 @@ def build(names: Iterable[str] = KERNEL_SOURCES, *,
     nvcc = nvcc_path()
     procs = {}
     out: Dict[str, Dict] = {}
-    for name in names:
-        path = library_path(name)
-        if path.exists():
-            out[name] = {"seconds": 0.0, "log": "", "cached": True}
-            continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose
-                                    else ()),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path, time.perf_counter())
     failed = []
-    for name, (proc, tmp, path, t0) in procs.items():
-        log, _ = proc.communicate()
-        out[name] = {"seconds": time.perf_counter() - t0, "log": log,
-                     "cached": False}
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-        else:
-            os.replace(tmp, path)
+    try:
+        for name in names:
+            path = library_path(name)
+            if path.exists():
+                out[name] = {"seconds": 0.0, "log": "", "cached": True}
+                continue
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose
+                                        else ()),
+                   "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True),
+                           tmp, path, time.perf_counter())
+        for name, (proc, tmp, path, t0) in procs.items():
+            log, _ = proc.communicate()
+            out[name] = {"seconds": time.perf_counter() - t0, "log": log,
+                         "cached": False}
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            else:
+                os.replace(tmp, path)
+    finally:
+        # an exception (or an interrupt) part-way leaves no nvcc behind
+        for proc, *_ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

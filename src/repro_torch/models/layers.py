@@ -1,7 +1,7 @@
-"""Shared neural-net building blocks, the ViT subset of the JAX package's
-``models/layers.py``: plain functions over dicts of tensors whose keys are
-the reference's. Per-layer trees stack along a leading ``L`` axis; that
-stacked tree is the weight-sharing super-network.
+"""Shared neural-net building blocks, the ViT and dense-LM subset of the
+JAX package's ``models/layers.py``: plain functions over dicts of tensors
+whose keys are the reference's. Per-layer trees stack along a leading
+``L`` axis; that stacked tree is the weight-sharing super-network.
 """
 from __future__ import annotations
 
@@ -17,11 +17,19 @@ NEG_INF = -1e30
 
 # ---------------------------------------------------------------- init utils
 
+def normal(gen: torch.Generator, shape, dtype, scale: float = 0.02):
+    """N(0, scale²) values drawn from ``gen`` on the generator's own device
+    (a generator's draws are device-specific: a CPU generator gives the
+    same values on every machine). ``gen=None`` makes a ``meta`` tensor,
+    shapes and dtypes only."""
+    device = gen.device if gen is not None else torch.device("meta")
+    return (torch.randn(shape, generator=gen, device=device)
+            * scale).to(dtype)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                scale: float = 0.02):
-    """N(0, scale²) weights drawn from ``gen`` (on the CPU: a generator's
-    draws are device-specific, so the port draws once and moves)."""
-    return (torch.randn((in_dim, out_dim), generator=gen) * scale).to(dtype)
+    return normal(gen, (in_dim, out_dim), dtype, scale)
 
 
 def zeros(shape, dtype):
@@ -33,6 +41,14 @@ def ones(shape, dtype):
 
 
 # --------------------------------------------------------------------- norms
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """fp32 RMS norm; ``scale`` stores (scale - 1), as the reference."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
 
 def layernorm(x, scale, bias, eps: float = 1e-5):
     """fp32 layer norm with the population variance, as the reference."""
@@ -46,16 +62,34 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
 def apply_norm(cfg: ModelConfig, x, p, prefix: str):
     if cfg.norm == "layernorm":
         return layernorm(x, p[f"{prefix}_scale"], p[f"{prefix}_bias"])
-    raise NotImplementedError(
-        f"norm={cfg.norm!r}: the port has layernorm only so far "
-        "(ROADMAP queue 1, item 6: the rest of the model zoo)")
+    return rmsnorm(x, p[f"{prefix}_scale"])
 
 
 def norm_params(cfg: ModelConfig, dm: int, dtype):
     if cfg.norm == "layernorm":
         return {"scale": ones((dm,), dtype), "bias": zeros((dm,), dtype)}
-    raise NotImplementedError(
-        f"norm={cfg.norm!r}: ROADMAP queue 1, item 6")
+    return {"scale": zeros((dm,), dtype)}  # rmsnorm stores (scale - 1)
+
+
+# ---------------------------------------------------------------------- rope
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """Rotary embedding on split halves. x: [B, S, N, hd]; positions:
+    [B, S] int. Angles in fp32 from the positions."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)            # [hd/2]
+    angles = positions.float()[..., None] * freqs             # [B,S,hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 # ----------------------------------------------------------------- attention
@@ -65,23 +99,35 @@ def attention(q, k, v, *, mask=None):
 
     q: [B, Sq, H, hd]; k, v: [B, Sk, K, hd] with H % K == 0.
     mask: broadcastable to [B, H, Sq, Sk] (True = attend).
+
+    Both einsums run on fp32 operands (exact for bf16 inputs), as the
+    reference's ``preferred_element_type=float32`` does; the
+    probabilities are rounded to ``v.dtype`` first, as there, and the
+    output is cast to ``q.dtype`` once, at the end.
     """
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     qf = q.reshape(B, Sq, K, G, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qf, k).float() / math.sqrt(hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qf.float(),
+                          k.float()) / math.sqrt(hd)
     scores = scores.reshape(B, H, Sq, k.shape[1])
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     probs = probs.reshape(B, K, G, Sq, k.shape[1])
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype).float(),
+                       v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def make_attn_mask(pos_q, pos_k, *, causal: bool, window: int = 0):
-    """[B, 1, Sq, Sk] boolean mask from absolute positions."""
+def make_attn_mask(pos_q, pos_k, *, causal: bool, window: int = 0,
+                   valid_k=None):
+    """[B, 1, Sq, Sk] boolean mask from absolute positions.
+
+    window > 0 limits the lookback distance; valid_k [B, Sk] bool marks
+    which cache slots are populated.
+    """
     dq = pos_q[:, :, None]
     dk = pos_k[:, None, :]
     m = torch.ones(dq.shape[:2] + (pos_k.shape[-1],), dtype=torch.bool,
@@ -90,6 +136,8 @@ def make_attn_mask(pos_q, pos_k, *, causal: bool, window: int = 0):
         m = m & (dk <= dq)
     if window and window > 0:
         m = m & (dk > dq - window)
+    if valid_k is not None:
+        m = m & valid_k[:, None, :]
     return m[:, None, :, :]
 
 
@@ -130,13 +178,15 @@ def project_qkv(cfg: ModelConfig, p, xq, xkv):
 # ----------------------------------------------------------------------- mlp
 
 def mlp_params(cfg: ModelConfig, gen: torch.Generator, dtype):
-    if cfg.mlp != "gelu":
-        raise NotImplementedError(
-            f"mlp={cfg.mlp!r}: the port has the gelu MLP only so far "
-            "(ROADMAP queue 1, item 6)")
     dm, dff = cfg.d_model, cfg.d_ff
     down_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
-    return {
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {
+            "w_gate": dense_init(gen, dm, dff, dtype),
+            "w_up": dense_init(gen, dm, dff, dtype),
+            "w_down": dense_init(gen, dff, dm, dtype, scale=down_scale),
+        }
+    return {  # plain gelu
         "w_up": dense_init(gen, dm, dff, dtype),
         "b_up": zeros((dff,), dtype),
         "w_down": dense_init(gen, dff, dm, dtype, scale=down_scale),
@@ -145,11 +195,67 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator, dtype):
 
 
 def mlp_apply(cfg: ModelConfig, p, x):
-    if cfg.mlp != "gelu":
-        raise NotImplementedError(f"mlp={cfg.mlp!r}: ROADMAP queue 1, item 6")
     # jax.nn.gelu defaults to the tanh approximation
+    if cfg.mlp == "swiglu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if cfg.mlp == "geglu":
+        return (F.gelu(x @ p["w_gate"], approximate="tanh")
+                * (x @ p["w_up"])) @ p["w_down"]
     h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
     return h @ p["w_down"] + p["b_down"]
+
+
+# ------------------------------------------------------- blockwise attention
+
+ATTN_BLOCKWISE_THRESHOLD = 4096
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
+                        bq: int = 512, bk: int = 1024):
+    """Online-softmax attention over query and kv blocks, in plain PyTorch:
+    never holds more than a [B, H, bq, bk] fp32 score block. The
+    reference's path for S >= ATTN_BLOCKWISE_THRESHOLD with the kernels
+    off. Positions are arange (prefill self-attention).
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, K, hd] -> [B, Sq, H, hd].
+    """
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    bq, bk = min(bq, Sq), min(bk, Skv)
+    if Sq % bq or Skv % bk:
+        raise ValueError(f"blockwise_attention: Sq {Sq} and Skv {Skv} must "
+                         f"divide into blocks of {bq} and {bk}")
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    outs = []
+    for i in range(Sq // bq):
+        qi = q[:, i * bq:(i + 1) * bq].reshape(B, bq, K, G, hd).float()
+        m = torch.full((B, K, G, bq), NEG_INF, device=dev)
+        l = torch.zeros((B, K, G, bq), device=dev)
+        acc = torch.zeros((B, K, G, bq, hd), device=dev)
+        rows = i * bq + torch.arange(bq, device=dev)[:, None]
+        for j in range(Skv // bk):
+            kj = k[:, j * bk:(j + 1) * bk].float()
+            vj = v[:, j * bk:(j + 1) * bk]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qi, kj) * scale
+            cols = j * bk + torch.arange(bk, device=dev)[None, :]
+            mask = torch.ones((bq, bk), dtype=torch.bool, device=dev)
+            if causal:
+                mask = mask & (cols <= rows)
+            if window:
+                mask = mask & (cols > rows - window)
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p.to(v.dtype).float(), vj.float())
+            m = m_new
+        o = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, bq, H, hd))
+    return torch.cat(outs, dim=1)
 
 
 # -------------------------------------------------------------------- losses

@@ -1,5 +1,6 @@
-"""The stacked-layer model, ``vit`` family: (patch embed) -> the layer stack
--> (mean pool, head).
+"""The stacked-layer model: the ``vit`` family ((patch embed) -> the layer
+stack -> (mean pool, head)) and the ``dense`` causal LM family ((token
+embed) -> the rope'd causal layer stack -> (final norm, untied unembed)).
 
 The stacked tree (leading ``L`` axis) is the paper's weight-sharing
 super-network: a client subnetwork of depth ``d`` is the row slice
@@ -10,9 +11,16 @@ slices the stack at ``d`` (the JAX package pins its static and runtime
 forms bit-exact, and ``tests/test_torch_model.py`` holds this slice
 against its runtime form).
 
+The dense family serves (``models/decode.py``): ``init_params``,
+``embed_inputs`` and ``run_stack(emit=True)``. Its SuperSFL training
+surfaces (prefix/suffix, losses, the TPGF split) come with the LM training
+slice (ROADMAP queue 1, item 1) and raise until then. The reference's
+``_constrain_batch`` pins a sharding and is a no-op on one device; the
+port has no counterpart (sharding is ROADMAP queue 1, item 8).
+
 Public surface (the JAX module's names):
   init_params(cfg, gen)
-  embed_inputs / run_stack
+  layer_role / embed_inputs / run_stack
   prefix_apply(cfg, params, batch, d)     -> (z, aux)   smashed data
   client_apply(cfg, client_params, batch) -> (z, aux)
   local_logits / local_loss               the client's fault-tolerant head
@@ -22,11 +30,13 @@ Public surface (the JAX module's names):
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -34,10 +44,26 @@ Params = Dict[str, Any]
 
 
 def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("vit", "dense"):
+        raise NotImplementedError(
+            f"family={cfg.family!r}: the port runs the vit and dense "
+            "families only so far (ROADMAP queue 1, item 6: the rest of the "
+            "model zoo)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """The SuperSFL training surfaces run the vit family only so far."""
+    check_family(cfg)
     if cfg.family != "vit":
         raise NotImplementedError(
-            f"family={cfg.family!r}: the port runs the vit family only so "
-            "far (ROADMAP queue 1, item 6: the rest of the model zoo)")
+            f"family={cfg.family!r}: the port serves this family "
+            "(models/decode.py); its SuperSFL training path comes with the "
+            "LM training slice (ROADMAP queue 1, item 1)")
+
+
+def layer_role(cfg: ModelConfig) -> str:
+    return {"dense": "dense", "moe": "moe", "ssm": "ssm", "hybrid": "hybrid",
+            "vlm": "dense", "audio": "enc", "vit": "enc"}[cfg.family]
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -48,7 +74,8 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 # ----------------------------------------------------------------- stack init
 
 def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
-    """One encoder layer's parameter tree (the reference's "enc" role)."""
+    """One layer's parameter tree: the reference's "enc" (vit) and "dense"
+    roles have the same leaves."""
     dm = cfg.d_model
     p: Params = {}
     p.update({f"attn_norm_{k}": v
@@ -77,44 +104,76 @@ def init_local_head(cfg: ModelConfig, gen: torch.Generator,
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device="cpu") -> Params:
     """The reference's shapes, dtypes and distributions, drawn from a
-    ``torch.Generator`` (``jax.random`` bits cannot be reproduced in torch;
-    tests carry the reference's weights across with ``repro_torch.bridge``)."""
+    ``torch.Generator`` on its own device (``jax.random`` bits cannot be
+    reproduced in torch; tests carry the reference's weights across with
+    ``repro_torch.bridge``), then moved to ``device``. A CUDA generator
+    draws a full-size model on the card; ``gen=None`` with
+    ``device="meta"`` gives shapes and dtypes only.
+
+    The dense family's global head is always untied (``unembed``), as in
+    the reference: SuperSFL puts the embedding on the client and the head
+    on the server."""
     check_family(cfg)
     dtype = torch_dtype(cfg)
     dm = cfg.d_model
-    pdim = cfg.patch_size * cfg.patch_size * 3
-    n_patches = (cfg.image_size // cfg.patch_size) ** 2
     p: Params = {}
-    p["patch_embed"] = L.dense_init(gen, pdim, dm, dtype)
-    p["patch_bias"] = L.zeros((dm,), dtype)
-    p["pos_embed"] = (torch.randn((n_patches, dm), generator=gen)
-                      * 0.02).to(dtype)
-    p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
-    p["head"] = L.dense_init(gen, dm, cfg.n_classes, dtype)
-    p["head_bias"] = L.zeros((cfg.n_classes,), dtype)
-    p.update(init_local_head(cfg, gen))
+    if cfg.family == "vit":
+        pdim = cfg.patch_size * cfg.patch_size * 3
+        n_patches = (cfg.image_size // cfg.patch_size) ** 2
+        p["patch_embed"] = L.dense_init(gen, pdim, dm, dtype)
+        p["patch_bias"] = L.zeros((dm,), dtype)
+        p["pos_embed"] = L.normal(gen, (n_patches, dm), dtype)
+        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
+        p["head"] = L.dense_init(gen, dm, cfg.n_classes, dtype)
+        p["head_bias"] = L.zeros((cfg.n_classes,), dtype)
+        p.update(init_local_head(cfg, gen))
+    else:
+        p["embed"] = L.normal(gen, (cfg.padded_vocab, dm), dtype)
+        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
+        p["final_norm"] = L.norm_params(cfg, dm, dtype)
+        p["unembed"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
+        p["local_head"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
     return tree_map(lambda x: x.to(device), p)
+
+
+def param_count(params: Params) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(params))
 
 
 # ------------------------------------------------------------- layer bodies
 
-def _attn_block(cfg: ModelConfig, p, h, *, positions, causal, window):
+def _attn_block(cfg: ModelConfig, p, h, *, positions, causal, window,
+                use_rope: bool = False):
+    """Returns (attn_out_projected, (k, v) post-rope for caching), with
+    the reference's dispatch: the flash kernel for causal attention over
+    more than one query under ``use_pallas``, else the blockwise loop from
+    ``ATTN_BLOCKWISE_THRESHOLD`` on, else plain attention."""
     x = L.apply_norm(cfg, h, p, "attn_norm")
     q, k, v = L.project_qkv(cfg, p["attn"], x, x)
-    # an all-True mask (non-causal, no window) is the identity: skip it
-    mask = (L.make_attn_mask(positions, positions, causal=causal,
-                             window=window)
-            if causal or window else None)
-    out = L.attention(q, k, v, mask=mask)
+    if use_rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.use_pallas and q.shape[1] > 1 and causal:
+        out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    elif q.shape[1] >= L.ATTN_BLOCKWISE_THRESHOLD:
+        out = L.blockwise_attention(q, k, v, causal=causal, window=window)
+    else:
+        # an all-True mask (non-causal, no window) is the identity: skip it
+        mask = (L.make_attn_mask(positions, positions, causal=causal,
+                                 window=window)
+                if causal or window else None)
+        out = L.attention(q, k, v, mask=mask)
     B, S = out.shape[:2]
-    return out.reshape(B, S, -1) @ p["attn"]["wo"]
+    return out.reshape(B, S, -1) @ p["attn"]["wo"], (k, v)
 
 
-def _layer(cfg: ModelConfig, p, h, *, positions, causal, window):
-    h = h + _attn_block(cfg, p, h, positions=positions, causal=causal,
-                        window=window)
+def _layer(cfg: ModelConfig, p, h, *, positions, causal, window,
+           use_rope: bool = False):
+    out, kv = _attn_block(cfg, p, h, positions=positions, causal=causal,
+                          window=window, use_rope=use_rope)
+    h = h + out
     x = L.apply_norm(cfg, h, p, "mlp_norm")
-    return h + L.mlp_apply(cfg, p["mlp"], x)
+    return h + L.mlp_apply(cfg, p["mlp"], x), kv
 
 
 def _row(tree, i: int):
@@ -128,22 +187,40 @@ def stack_len(stack: Params) -> int:
 
 
 def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
-              causal: bool = False, window: int = 0):
+              causal: bool = False, window: int = 0, emit: bool = False):
     """Apply every row of ``stack`` to ``h`` in order (the caller slices
-    the depth window). Returns (h, aux); aux is the MoE router loss, 0.0
-    for the vit family."""
+    the depth window). Returns (h, aux), and with ``emit`` (h, aux, ys):
+    ys = {"k", "v"} stacks each layer's post-rope k and v, [L, B, S, K,
+    hd]. aux is the MoE router loss, 0.0 for the vit and dense families."""
+    use_rope = layer_role(cfg) in ("dense", "moe", "hybrid")
+    ks, vs = [], []
     for i in range(stack_len(stack)):
-        h = _layer(cfg, _row(stack, i), h, positions=positions,
-                   causal=causal, window=window)
+        h, (k, v) = _layer(cfg, _row(stack, i), h, positions=positions,
+                           causal=causal, window=window, use_rope=use_rope)
+        if emit:
+            ks.append(k)
+            vs.append(v)
+    if emit:
+        return h, 0.0, {"k": torch.stack(ks), "v": torch.stack(vs)}
     return h, 0.0
 
 
 # ---------------------------------------------------------------- embeddings
 
 def embed_inputs(cfg: ModelConfig, params: Params, batch) -> Tuple[Any, Any]:
-    """Returns (h [B,S,dm], positions [B,S]); the reference's patchify
-    order (rows of patches, then columns, then pixels and channels)."""
+    """Returns (h [B,S,dm], positions [B,S]). vit: the reference's
+    patchify order (rows of patches, then columns, then pixels and
+    channels); dense: ``embed[tokens]·√d_model``."""
     check_family(cfg)
+    if cfg.family == "dense":
+        emb = params["embed"]
+        # the reference's weak-typed scalar is rounded to the embedding's
+        # dtype before the product, as this 0-d tensor is
+        scale = torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype,
+                             device=emb.device)
+        h = emb[batch["tokens"].long()] * scale
+        pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        return h, pos
     img = batch["images"]
     B, Hh, Ww, C = img.shape
     ps = cfg.patch_size
@@ -157,8 +234,10 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch) -> Tuple[Any, Any]:
 
 
 def _head_logits(cfg: ModelConfig, params: Params, h):
-    pooled = h.mean(dim=1)
-    return pooled @ params["head"] + params["head_bias"]
+    if cfg.family == "vit":
+        pooled = h.mean(dim=1)
+        return pooled @ params["head"] + params["head_bias"]
+    return h @ params["unembed"]
 
 
 # --------------------------------------------------------- SuperSFL surfaces
@@ -170,6 +249,7 @@ def _depth_slice(stack: Params, lo: int, hi: int = None) -> Params:
 def client_apply(cfg: ModelConfig, client_params: Params, batch):
     """Forward an already-split client view (stack rows ``[:d]``) ->
     smashed z."""
+    check_trainable(cfg)
     h, pos = embed_inputs(cfg, client_params, batch)
     return run_stack(cfg, client_params["layers"], h, positions=pos,
                      window=cfg.sliding_window)
@@ -185,7 +265,7 @@ def prefix_apply(cfg: ModelConfig, params: Params, batch, d: int):
 
 def local_logits(cfg: ModelConfig, params: Params, z):
     """Fault-tolerant lightweight client head on smashed data."""
-    check_family(cfg)
+    check_trainable(cfg)
     pooled = z.mean(dim=1)
     return pooled @ params["local_head"] + params["local_head_bias"]
 
@@ -197,7 +277,7 @@ def local_loss(cfg: ModelConfig, params: Params, z, batch):
 def server_apply(cfg: ModelConfig, server_params: Params, z, batch):
     """The server branch on an already-split view whose stack holds only
     the suffix rows ``[d:]``."""
-    check_family(cfg)
+    check_trainable(cfg)
     pos = torch.arange(z.shape[1], device=z.device).expand(z.shape[:2])
     h, aux = run_stack(cfg, server_params["layers"], z, positions=pos,
                        window=cfg.sliding_window)

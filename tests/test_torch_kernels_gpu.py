@@ -10,7 +10,10 @@ its own, as the plain formula does) and 1e-5 for ``aggregate`` (it sums
 clients in order, the plain version's einsum in another order); bf16 2e-2.
 ``tier_sum`` is bit-exact (it adds in the plain version's order);
 ``sumsq`` within 1e-5 relative (another summation order) and the same
-bits on two calls.
+bits on two calls. ``flash_attention`` within the reference kernel's own
+test tolerances, 2e-5 (fp32) and 3e-2 (bf16), at ``chip_smoke.py``'s
+shapes: the serve path's, a window, MQA, every head dim, a ragged S and
+non-causal cases.
 """
 import pytest
 
@@ -164,3 +167,70 @@ def test_aggregate_kernel_all_zero_weights(cuda):
     ulp = torch.nextafter(s.abs(), torch.full_like(s, float("inf"))) \
         - s.abs()
     assert bool(torch.all((got - s).abs() <= ulp))
+
+
+# the chip smoke's flash_attention cases: (B, S, H, K, hd, causal, window)
+FLASH_CASES = [
+    (4, 2048, 24, 8, 128, True, 0),      # the serve path's shape
+    (1, 1024, 8, 2, 128, True, 256),     # sliding window
+    (2, 512, 8, 1, 64, True, 0),         # MQA
+    (1, 256, 4, 2, 32, True, 0),
+    (1, 256, 4, 2, 64, True, 0),
+    (1, 256, 4, 2, 256, True, 0),
+    (2, 1000, 4, 2, 128, True, 0),       # ragged: not a multiple of 64
+    (1, 300, 4, 4, 64, False, 0),        # non-causal, ragged
+    (1, 300, 4, 4, 64, False, 100),      # non-causal window
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
+    from repro_torch.kernels.flash_attention import ops as O, ref as R
+    B, S, H, K, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, K, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, K, hd), generator=g, device=cuda).to(dtype)
+    before = O.flash_attention.launches
+    got = O.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert O.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = R.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_checks_its_inputs(cuda):
+    from repro_torch.kernels.flash_attention import ops as O
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    kv = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError):                   # H % K != 0
+        O.flash_attention(q, torch.zeros((1, 8, 3, 64), device=cuda),
+                          torch.zeros((1, 8, 3, 64), device=cuda))
+    with pytest.raises(ValueError):                   # head_dim 48
+        x = torch.zeros((1, 8, 2, 48), device=cuda)
+        O.flash_attention(x, x, x)
+    with pytest.raises(TypeError):
+        O.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError):
+        O.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                          kv, kv)
+    flat = torch.zeros(8 * 4 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):      # offset 2 bytes
+        O.flash_attention(flat[1:].view(1, 8, 4, 64), kv.bfloat16(),
+                          kv.bfloat16())
+
+
+def test_flash_attention_kernel_refuses_grad(cuda):
+    from repro_torch.kernels.flash_attention import ops as O
+    q = torch.randn((1, 64, 4, 64), device=cuda, requires_grad=True)
+    kv = torch.randn((1, 64, 2, 64), device=cuda)
+    before = O.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        O.flash_attention(q, kv, kv)
+    assert O.flash_attention.launches == before
+    with torch.no_grad():
+        O.flash_attention(q, kv, kv)
+    assert O.flash_attention.launches == before + 1

@@ -216,7 +216,31 @@ def test_server_split_loss_gradients(setup, d):
 
 
 def test_other_families_raise():
-    cfg = TB.get_reduced("vit16_cifar").replace(family="dense")
+    cfg = TB.get_reduced("vit16_cifar").replace(family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(cfg, torch.Generator().manual_seed(0))
     assert math.isclose(TB.get_config("vit16_cifar").d_model, 768)
+
+
+def test_bf16_attention_within_one_ulp_of_reference():
+    """bf16 attention keeps fp32 scores and an fp32 PV product, as the
+    reference's ``preferred_element_type=float32`` does: the port's output
+    is within one bf16 ulp of the JAX one on the same inputs."""
+    rng = np.random.default_rng(11)
+    B, S, H, K, hd = 2, 128, 4, 2, 64
+    q, k, v = (rng.normal(size=(B, S, n, hd)).astype(np.float32) * 2.0
+               for n in (H, K, K))
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    jmask = JL.make_attn_mask(jnp.asarray(pos), jnp.asarray(pos),
+                              causal=True)
+    want = np.asarray(JL.attention(*(jnp.asarray(a, jnp.bfloat16)
+                                     for a in (q, k, v)), mask=jmask),
+                      np.float32)
+    tpos = torch.tensor(pos)
+    got = TL.attention(*(torch.tensor(a).bfloat16() for a in (q, k, v)),
+                       mask=TL.make_attn_mask(tpos, tpos, causal=True))
+    assert got.dtype == torch.bfloat16
+    # one bf16 ulp at each output's magnitude (8 significant bits)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    err = np.abs(got.float().numpy() - want)
+    assert np.all(err <= ulp), float((err / ulp).max())
