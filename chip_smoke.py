@@ -12,13 +12,15 @@ Phases, one JSON line each (plus the card's name and power limit as
   2. build — every CUDA kernel of the port, one ``nvcc`` per source, all
      started together, from ``src/repro_torch/csrc``;
   3. kernels — each kernel's wrapper (``fuse``, ``aggregate``,
-     ``tier_sum``, ``sumsq``, ``flash_attention``) against its plain
-     PyTorch version on the card at the paths' shapes (and ragged,
-     unaligned, zero-weight, windowed, MQA, every head dim and bf16
-     cases), with times from CUDA events: kernel, plain version, one
-     PyTorch library call where one computes the same function, and the
-     bound (bytes over 3.35 TB/s vs operations over the peak of their
-     type: 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16);
+     ``tier_sum``, ``sumsq``, ``flash_attention``, ``ssd_scan``) against
+     its plain PyTorch version on the card at the paths' shapes (and
+     ragged, unaligned, zero-weight, windowed, MQA, every head dim, bf16,
+     every (head_dim, state) pair, no-D and overflow cases), with times
+     from CUDA events: kernel, plain version, one PyTorch library call
+     where one computes the same function (none does for ``ssd_scan``),
+     and the bound (bytes over 3.35 TB/s vs operations over the peak of
+     their type: 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s
+     bf16);
   4. main path — full-width ViT-16-CIFAR trained by ``ssfl`` for two rounds
      through ``repro_torch.federated.Engine`` with the kernels on
      (``use_pallas=True``), then evaluated with the global head and the
@@ -45,7 +47,17 @@ Phases, one JSON line each (plus the card's name and power limit as
      ``SERVE_LOGIT_TOL`` of the largest logit). Prints prefill and decode
      times and rates, peak memory, the weights' init time, one profiled
      prefill and one profiled decode step;
-  8. the ``kernels`` summary line; each kernel's ``launches`` come from
+  8. ssm serve path — the same contract for Mamba2-2.7B at full width and
+     depth in bf16 (64 layers, d_model 2560, 80 SSM heads of 64, state
+     128), the Llama weights freed first: ``ssd_scan`` must launch 64
+     times a prefill and ``flash_attention`` never. Its bf16 agreements
+     are held to ``BF16_LOGIT_TOL["ssm"]``, and the same three
+     agreements in fp32 at full size to ``FP32_LOGIT_TOL``;
+  9. hybrid serve path — the same for Hymba-1.5B (32 layers, d_model
+     1600, 25 query and 5 KV heads of 64, 50 SSM heads of 64, state 16):
+     ``flash_attention`` and ``ssd_scan`` must each launch 32 times a
+     prefill; its launches get a line of their own;
+ 10. the ``kernels`` summary line; each kernel's ``launches`` come from
      the path named beside it (counts set to 0 just before that path).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -73,15 +85,31 @@ ROUNDS = 2
 LADDER = (0.25, 0.5, 0.75, 1.0)     # the width path's supernet tiers
 PORT_KERNELS = ("fuse_kernel", "aggregate_kernel", "tier_sum_kernel",
                 "sumsq_partial_kernel", "sumsq_final_kernel",
-                "flash_attention_f32_kernel", "flash_attention_bf16_kernel")
+                "flash_attention_f32_kernel", "flash_attention_bf16_kernel",
+                "ssd_scan_kernel")
 SERVE_ARCH = "llama3_2_3b"
+SSM_ARCH = "mamba2_2_7b"
+HYBRID_ARCH = "hymba_1_5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# ssd_scan against its plain version: y and h within this much of their
+# largest magnitude, the reference kernel's own bar (test_kernels.py)
+SSD_TOL = 1e-4
 # kernels on vs off, and decode vs the teacher-forced prefill, as
 # max |Δlogit| / max |logit|: both sides run bf16 through 28 layers, and
 # the flash kernel rounds its output to bf16 from another fp32 order than
 # plain attention, so single ulps of the bf16 residual stream differ; the
 # JAX package's own decode parity bound is 2e-3 in fp32 at 2 layers
 SERVE_LOGIT_TOL = 2e-2
+# the ssm and hybrid families in bf16: random weights through 32–64
+# layers amplify single-ulp differences (the kernel rounds its fp32 sums
+# in another order than the plain scan), so on the H100 the three bf16
+# agreements read 0.145–0.155 at Mamba2's 64 layers and 0.031–0.035 at
+# Hymba's 32, the same in every run; the limits stand 30 % and 43 %
+# above the largest of them. The gate on the kernels themselves is the
+# same three agreements in fp32 at full width and depth (readings
+# 3.0e-6–4.1e-5), held to FP32_LOGIT_TOL
+BF16_LOGIT_TOL = {"dense": SERVE_LOGIT_TOL, "ssm": 0.2, "hybrid": 5e-2}
+FP32_LOGIT_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -453,6 +481,117 @@ def phase_flash(shape):
     return row
 
 
+def _ssd_bound(Bt, S, nh, hd, st, cl):
+    """(bytes, operations) of the SSD scan: the least work the function
+    needs, the two state contractions (C·hᵀ and the state update, 2·hd·st
+    each per row and head), plus the chunked form's own terms at the
+    kernel's chunk ``cl``: the causal half of W·u, cl²·hd per (batch, head,
+    chunk), and C·Bᵀ, 2·cl²·st per (batch, chunk). Bytes: x and y once
+    each, B, C, dt, A, D and h, fp32."""
+    nc = math.ceil(S / cl)
+    flops = (4.0 * Bt * S * nh * hd * st + Bt * nh * nc * cl * cl * hd
+             + Bt * nc * 2.0 * cl * cl * st)
+    nbytes = 4.0 * (2 * Bt * S * nh * hd + 2 * Bt * S * st + Bt * S * nh
+                    + 2 * nh + Bt * nh * hd * st)
+    return nbytes, flops
+
+
+def phase_ssd_scan(ssm_shape, hybrid_shape):
+    """``ssd_scan`` against its plain version (``ssd_ref`` at a chunk that
+    divides S) on the card: the Mamba2 and Hymba serve shapes,
+    ``test_kernels.py``'s shapes, every (head_dim, state) pair, ragged S,
+    D = None, and dt near 1 with A = −16, where an unmasked upper half
+    would overflow; y and h finite and within ``SSD_TOL`` of their
+    largest magnitude. Timed at the Mamba2 serve shape beside the plain
+    version at the chunk ``ssm_apply`` takes (256)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as O, ref as R
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dev = "cuda"
+
+    def inputs(Bt, S, nh, hd, st, dt_range=(0.01, 0.2), A=None):
+        x = torch.randn((Bt, S, nh, hd), generator=gen, device=dev)
+        lo, hi = dt_range
+        dt = lo + (hi - lo) * torch.rand((Bt, S, nh), generator=gen,
+                                         device=dev)
+        if A is None:    # the model's A = −exp(log(linspace(1, 16)))
+            A = -torch.linspace(1.0, 16.0, nh, device=dev)
+        B = torch.randn((Bt, S, st), generator=gen, device=dev)
+        C = torch.randn((Bt, S, st), generator=gen, device=dev)
+        D = torch.randn((nh,), generator=gen, device=dev)
+        return x, dt, A, B, C, D
+
+    def check(key, got, want):
+        for name, g, w in zip(("y", "h"), got, want):
+            err = float((g - w).abs().max())
+            top = float(w.abs().max())
+            if not bool(torch.isfinite(g).all()) or err > SSD_TOL * top:
+                die(f"ssd_scan {key}: {name} disagrees with the plain "
+                    f"version (max abs err {err}, largest |{name}| {top}, "
+                    f"limit {SSD_TOL} of it; finite "
+                    f"{bool(torch.isfinite(g).all())})")
+        return float((got[0] - want[0]).abs().max())
+
+    # (key, (Bt, S, nh, hd, st), the plain version's chunk, options)
+    cases = [("mamba2", ssm_shape, 256, {}),
+             ("hymba", hybrid_shape, 256, {}),
+             ("tk_2x256x4x32x16", (2, 256, 4, 32, 16), 128, {}),
+             ("tk_1x128x2x64x32", (1, 128, 2, 64, 32), 64, {}),
+             ("tk_2x64x3x32x16", (2, 64, 3, 32, 16), 64, {}),
+             ("tk_1x512x2x32x128", (1, 512, 2, 32, 128), 128, {}),
+             ("recurrence_hd8_st4", (1, 32, 2, 8, 4), 16, {}),
+             ("hymba_reduced_hd32_st8", (2, 96, 4, 32, 8), 96, {}),
+             ("ragged2000", ssm_shape[:1] + (2000,) + ssm_shape[2:], 250,
+              {}),
+             ("ragged77", (2, 77, 4, 32, 16), 77, {}),
+             ("one_row", (3, 1, 2, 64, 128), 1, {}),
+             ("no_D", (2, 256, 8, 64, 128), 128, {"no_d": True}),
+             ("overflow_dt1_A-16", (2, 256, 8, 64, 128), 256,
+              {"dt_range": (0.5, 1.0), "A": -16.0})]
+    checks = {}
+    with torch.no_grad():
+        for key, (Bt, S, nh, hd, st), chunk, opt in cases:
+            A = (torch.full((nh,), opt["A"], device=dev) if "A" in opt
+                 else None)
+            x, dt, A, B, C, D = inputs(Bt, S, nh, hd, st,
+                                       opt.get("dt_range", (0.01, 0.2)), A)
+            if opt.get("no_d"):
+                D = None
+            checks[key] = check(key, O.ssd_scan(x, dt, A, B, C, D),
+                                R.ssd_ref(x, dt, A, B, C, D, chunk=chunk))
+            del x, dt, B, C
+        torch.cuda.synchronize()
+
+        times = {}
+        for label, shape in (("mamba2", ssm_shape), ("hymba", hybrid_shape)):
+            x, dt, A, B, C, D = inputs(*shape)
+            times[label] = (
+                time_ms(lambda: O.ssd_scan(x, dt, A, B, C, D)),
+                time_ms(lambda: R.ssd_ref(x, dt, A, B, C, D, chunk=256)))
+            del x, dt, B, C
+    ms, plain_ms = times["mamba2"]
+    nbytes, flops = _ssd_bound(*ssm_shape, O.KERNEL_CHUNK)
+    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
+    hb_bytes, hb_flops = _ssd_bound(*hybrid_shape, O.KERNEL_CHUNK)
+    row = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
+           "shape": list(ssm_shape), "dtype": "float32",
+           "max_abs_err": checks["mamba2"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None,
+           "library_call": "none: no single PyTorch call computes the SSD "
+                           "scan",
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "hybrid_shape": list(hybrid_shape),
+           "hybrid_ms": times["hymba"][0],
+           "hybrid_plain_ms": times["hymba"][1],
+           "hybrid_bound_ms": bound(hb_bytes, hb_flops,
+                                    FP32_FLOPS_PER_S)[0]}
+    emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
+    return row
+
+
 # --------------------------------------------------------------- phase 4
 def _engine(cfg, **kw):
     from repro_torch.federated import Engine
@@ -480,11 +619,12 @@ def _run(cfg, label, **kw):
 def _wrappers():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.layer_aggregate.ops import aggregate_leaf
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.tpgf_fusion.ops import (fuse_leaf, sumsq_leaf,
                                                      tier_sum_leaf)
     return {"fuse": fuse_leaf, "aggregate": aggregate_leaf,
             "tier_sum": tier_sum_leaf, "sumsq": sumsq_leaf,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
 def _zero_counts() -> None:
@@ -630,18 +770,89 @@ def _rel_logit_diff(got, want) -> float:
     return num / den
 
 
-def phase_serve_path():
-    """Llama-3.2-3B at full width, bf16, served through the port's entry
-    points: prefill of 4 × 2,048 tokens (the flash kernel in every layer)
-    and 32 greedy decode steps; kernels off must agree, and decode must
-    reproduce the teacher-forced prefill. Returns the launch counts."""
+def _config_fields(cfg):
+    """The widths a serve line reports for ``cfg``'s family."""
+    out = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab}
+    if cfg.family in ("dense", "hybrid"):
+        out.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                   head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff)
+    if cfg.family in ("ssm", "hybrid"):
+        out.update(ssm_d_inner=cfg.ssm_d_inner, ssm_n_heads=cfg.ssm_n_heads,
+                   ssm_head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state)
+    return out
+
+
+def _serve_agreements(cfg, params, toks, fed):
+    """Kernels on vs off — the prefill logits, and decode steps fed the
+    tokens ``fed`` (greedy argmax over random weights flips on rounding
+    noise) — and decode from a prefill of SERVE_PROMPT − SERVE_GEN tokens
+    (kernels on) against the full prefill's logits at the positions it
+    decodes; each as max |Δlogit| / max |logit|. Kernels off must launch
+    nothing."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    runs = {}
+    for on in (True, False):
+        c = cfg.replace(use_pallas=on)
+        _zero_counts()
+        logits, cache = make_prefill_step(c, decode_budget=SERVE_GEN)(
+            params, {"tokens": toks})
+        serve = make_serve_step(c)
+        steps = []
+        for tok in fed:
+            lg, cache = serve(params, cache, tok)
+            steps.append(lg)
+        if not on and any(_counts().values()):
+            die(f"{cfg.name}: use_pallas=False launched a kernel: "
+                f"{_counts()}")
+        runs[on] = (logits, torch.cat(steps, 1))
+        del cache, steps
+    d_prefill = _rel_logit_diff(runs[True][0], runs[False][0])
+    d_decode = _rel_logit_diff(runs[True][1], runs[False][1])
+    full = runs[True][0]
+    del runs
+    # the cache on the card: prefill SERVE_PROMPT − SERVE_GEN tokens, then
+    # decode the rest teacher-forced; step t's logits are position t's
+    on = cfg.replace(use_pallas=True)
+    n0 = SERVE_PROMPT - SERVE_GEN
+    _, cache = make_prefill_step(on, decode_budget=SERVE_GEN)(
+        params, {"tokens": toks[:, :n0]})
+    serve = make_serve_step(on)
+    tf = []
+    for t in range(n0, SERVE_PROMPT):
+        lg, cache = serve(params, cache, toks[:, t:t + 1])
+        tf.append(lg)
+    d_cache = _rel_logit_diff(torch.cat(tf, 1), full[:, n0:])
+    return {"prefill_kernels_vs_plain": d_prefill,
+            "decode_kernels_vs_plain": d_decode,
+            "decode_vs_teacher_forced_prefill": d_cache,
+            "max_abs_logit": float(full.float().abs().max())}
+
+
+def _check_agreements(name, agree, limit):
+    for key in ("prefill_kernels_vs_plain", "decode_kernels_vs_plain",
+                "decode_vs_teacher_forced_prefill"):
+        if not agree[key] <= limit:
+            die(f"{name}: {key}: max |Δlogit| / max |logit| = "
+                f"{agree[key]} > {limit}")
+
+
+def phase_serve_path(name, arch, expect):
+    """``arch`` at full width, bf16, served through the port's entry
+    points: prefill of 4 × 2,048 tokens and 32 greedy decode steps; one
+    prefill and its decode must launch each kernel exactly as ``expect``
+    says ({name: launches}, every other kernel never); kernels off must
+    agree, and decode must reproduce the teacher-forced prefill (the ssm
+    and hybrid families also at full width and depth in fp32: see
+    FP32_LOGIT_TOL). Returns the launch counts."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import synthetic_lm_batches
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.model import init_params, param_count
 
-    cfg = get_config(SERVE_ARCH).replace(use_pallas=True)
+    cfg = get_config(arch).replace(use_pallas=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -682,23 +893,20 @@ def phase_serve_path():
     logits_on, fed, steps_on, prefill_s, decode_s = run_serve()
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    if launches["flash_attention"] != cfg.n_layers:
-        die(f"serve_path: flash_attention launched "
-            f"{launches['flash_attention']} times in one prefill, expected "
-            f"{cfg.n_layers} ({launches})")
+    want = {k: expect.get(k, 0) for k in launches}
+    if launches != want:
+        die(f"{name}: one prefill and its decode launched {launches}, "
+            f"expected {want}")
     gen_tokens = torch.cat(fed, dim=1)
     finite = bool(torch.isfinite(logits_on).all()) and all(
         bool(torch.isfinite(x).all()) for x in steps_on)
     if logits_on.shape != (SERVE_BATCH, SERVE_PROMPT, cfg.padded_vocab) \
             or not finite:
-        die(f"serve_path: prefill logits {tuple(logits_on.shape)}, finite "
+        die(f"{name}: prefill logits {tuple(logits_on.shape)}, finite "
             f"{finite}")
     ntok = SERVE_BATCH * SERVE_PROMPT
-    emit({"phase": "serve_path", "config": cfg.name, "dtype": cfg.dtype,
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-          "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-          "vocab": cfg.vocab, "params": n_params,
+    emit({"phase": name, "config": cfg.name, "dtype": cfg.dtype,
+          **_config_fields(cfg), "params": n_params,
           "init_s": init_s, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
           "decode_steps": SERVE_GEN, "launches": launches,
           "prefill_ms": prefill_s * 1e3,
@@ -708,57 +916,37 @@ def phase_serve_path():
           "peak_mem_gb": peak_gb,
           "generated_req0": gen_tokens[0, :8].tolist()})
 
-    # kernels off: the same weights, prefill, then decode fed the SAME
-    # tokens (greedy argmax over random weights flips on bf16 noise)
-    off = cfg.replace(use_pallas=False)
-    _zero_counts()
-    logits_off, cache = make_prefill_step(off, decode_budget=SERVE_GEN)(
-        params, {"tokens": toks})
-    serve_off = make_serve_step(off)
-    steps_off = []
-    for tok in fed:
-        lg, cache = serve_off(params, cache, tok)
-        steps_off.append(lg)
-    if any(_counts().values()):
-        die(f"serve_path: use_pallas=False launched a kernel: {_counts()}")
-    d_prefill = _rel_logit_diff(logits_on, logits_off)
-    d_decode = _rel_logit_diff(torch.cat(steps_on, 1), torch.cat(steps_off, 1))
-    del logits_off, steps_off, cache
-
-    # the cache on the card: prefill SERVE_PROMPT − SERVE_GEN tokens, then
-    # decode the rest teacher-forced; step t's logits are position t's
-    n0 = SERVE_PROMPT - SERVE_GEN
-    _, cache = make_prefill_step(cfg, decode_budget=SERVE_GEN)(
-        params, {"tokens": toks[:, :n0]})
-    tf = []
-    for t in range(n0, SERVE_PROMPT):
-        lg, cache = serve(params, cache, toks[:, t:t + 1])
-        tf.append(lg)
-    d_cache = _rel_logit_diff(torch.cat(tf, 1), logits_on[:, n0:])
-    emit({"phase": "serve_agreement", "limit": SERVE_LOGIT_TOL,
-          "prefill_kernels_vs_plain": d_prefill,
-          "decode_kernels_vs_plain": d_decode,
-          "decode_vs_teacher_forced_prefill": d_cache,
-          "max_abs_logit": float(logits_on.float().abs().max())})
-    for name, d in (("prefill kernels vs plain", d_prefill),
-                    ("decode kernels vs plain", d_decode),
-                    ("decode vs teacher-forced prefill", d_cache)):
-        if not d <= SERVE_LOGIT_TOL:
-            die(f"serve_path: {name}: max |Δlogit| / max |logit| = {d} > "
-                f"{SERVE_LOGIT_TOL}")
-    del tf, cache, logits_on, steps_on
+    del logits_on, steps_on
+    agree = _serve_agreements(cfg, params, toks, fed)
+    limit = BF16_LOGIT_TOL[cfg.family]
+    emit({"phase": "serve_agreement", "path": name, "dtype": cfg.dtype,
+          "limit": limit, **agree})
+    _check_agreements(name, agree, limit)
     torch.cuda.empty_cache()
     held = {}
 
     def profiled_prefill():
         held["out"] = prefill(params, {"tokens": toks})
 
-    _profile(profiled_prefill, prefill_s, "serve_prefill")
+    prefix = name.removesuffix("_path")
+    _profile(profiled_prefill, prefill_s, f"{prefix}_prefill")
     logits, cache = held.pop("out")
     tok = logits[:, -1:, :V].argmax(dim=-1)
     del logits
     _profile(lambda: serve(params, cache, tok), decode_s / SERVE_GEN,
-             "serve_decode")
+             f"{prefix}_decode")
+    if cfg.family in ("ssm", "hybrid"):
+        # the same weights in fp32 (bf16's are these, rounded)
+        del params, cache, held
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32 = cfg.replace(dtype="float32")
+        params = init_params(f32, torch.Generator(device="cuda").manual_seed(
+            0), device="cuda")
+        agree = _serve_agreements(f32, params, toks, fed)
+        emit({"phase": "serve_agreement", "path": name, "dtype": "float32",
+              "limit": FP32_LOGIT_TOL, **agree})
+        _check_agreements(f"{name} (fp32)", agree, FP32_LOGIT_TOL)
     return launches
 
 
@@ -837,12 +1025,16 @@ def main() -> None:
     d_mix = min(int(d) for d in set(fleet.depths.tolist())
                 if len(set(widths[fleet.depths == d])) > 1)
     lm = get_config(SERVE_ARCH)
+    ssm, hybrid = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
     rows = [phase_fuse((d_max, cfg.d_model, cfg.d_ff)),
             phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff),
             phase_tier_sum((cfg.n_layers - d_mix, cfg.d_model, cfg.d_ff)),
             phase_sumsq(cfg, d_max),
             phase_flash((SERVE_BATCH, SERVE_PROMPT, lm.n_heads,
-                         lm.n_kv_heads, lm.resolved_head_dim))]
+                         lm.n_kv_heads, lm.resolved_head_dim)),
+            phase_ssd_scan(*((SERVE_BATCH, SERVE_PROMPT, c.ssm_n_heads,
+                              c.ssm_head_dim, c.ssm_state)
+                             for c in (ssm, hybrid)))]
     torch.cuda.empty_cache()
     launches = {}
     main_launches, eng = phase_path("main_path", ("fuse", "aggregate"))
@@ -855,17 +1047,30 @@ def main() -> None:
         width_tiers=LADDER, cross_tier="fused")[0]
     gc.collect()                      # the ViT engines go before the LM
     torch.cuda.empty_cache()
-    launches["serve_path"] = phase_serve_path()
+    launches["serve_path"] = phase_serve_path(
+        "serve_path", SERVE_ARCH, {"flash_attention": lm.n_layers})
+    gc.collect()                      # the Llama weights go first
+    torch.cuda.empty_cache()
+    launches["ssm_serve_path"] = phase_serve_path(
+        "ssm_serve_path", SSM_ARCH, {"ssd_scan": ssm.n_layers})
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["hybrid_serve_path"] = phase_serve_path(
+        "hybrid_serve_path", HYBRID_ARCH,
+        {"flash_attention": hybrid.n_layers, "ssd_scan": hybrid.n_layers})
     # each kernel's launches come from the path that carries it
     carried_by = {"fuse": "main_path", "aggregate": "main_path",
                   "tier_sum": "width_path", "sumsq": "clip_path",
-                  "flash_attention": "serve_path"}
+                  "flash_attention": "serve_path",
+                  "ssd_scan": "ssm_serve_path"}
     for row in rows:
         row["path"] = carried_by[row["name"]]
         row["launches"] = launches[row["path"]][row["name"]]
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # the hybrid path runs both serving kernels; its launches stand here
+    emit({"hybrid_serve_path_launches": launches["hybrid_serve_path"]})
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     # hand the card's memory back before the result, so that the exit
     # after it has little left to tear down

@@ -1,16 +1,20 @@
 """Serving example for the PyTorch/CUDA port: batched prefill + greedy
-autoregressive decode with the KV cache.
+autoregressive decode with the KV/SSM cache.
 
 The port's counterpart of ``examples/serve_decode.py``: one prefill over a
 batch of prompts (from ``synthetic_lm_batches``) with room for
 ``--gen`` tokens, then token-by-token greedy decode over the first
-``vocab`` logits. Prefill runs the hand-written flash-attention kernel in
-every layer on a card (its plain version on the CPU); decode attends
-over the cache with plain attention.
+``vocab`` logits. On a card, prefill runs the hand-written kernels in
+every layer (their plain versions on the CPU): flash attention for the
+dense and hybrid families, the SSD scan for the ssm and hybrid ones;
+decode attends over the cache with plain attention and steps the SSM
+recurrence in plain PyTorch.
 
-Run on the card (full-width Llama-3.2-3B, random weights from a seed):
+Run on the card (full width, random weights from a seed):
 
     PYTHONPATH=src python examples/serve_decode_torch.py llama3_2_3b
+    PYTHONPATH=src python examples/serve_decode_torch.py mamba2_2_7b
+    PYTHONPATH=src python examples/serve_decode_torch.py hymba_1_5b
 
 or on the CPU with the reduced config (the kernels' plain versions):
 
@@ -85,9 +89,9 @@ def main(argv=None):
     prompts = torch.as_tensor(batch["tokens"].astype(np.int64),
                               device=args.device)
     out, cache, pre_s, dec_s = serve(cfg, params, prompts, args.gen)
+    window = f"  window={cache['k'].shape[2]}" if "k" in cache else ""
     print(f"arch={cfg.name}  device={args.device}  batch={BATCH}  "
-          f"prompt={args.prompt}  generated={out.shape[1]} tokens  "
-          f"window={cache['k'].shape[2]}")
+          f"prompt={args.prompt}  generated={out.shape[1]} tokens{window}")
     print(f"init {init_s:.2f} s  prefill {pre_s * 1e3:.1f} ms  decode "
           f"{dec_s * 1e3 / max(args.gen - 1, 1):.2f} ms/token")
     for b in range(2):

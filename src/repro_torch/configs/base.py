@@ -3,10 +3,11 @@
 Field for field the same dataclass as the JAX package's
 ``configs/base.py``, so a config built on either side has the same
 values. ``get_config``/``get_reduced`` resolve modules inside
-``repro_torch.configs``. The port carries the ViT config and the four
+``repro_torch.configs``. The port carries the ViT config, the four
 dense causal LMs (``llama3_2_3b``, ``qwen2_5_3b``, ``gemma_2b``,
-``internlm2_1_8b``), each with its ``reduced()`` form; the other
-families come with ROADMAP queue 1, item 6.
+``internlm2_1_8b``), the ssm ``mamba2_2_7b`` and the hybrid
+``hymba_1_5b``, each with its ``reduced()`` form; the other families
+come with ROADMAP queue 1, item 6.
 """
 from __future__ import annotations
 
@@ -88,8 +89,20 @@ class ModelConfig:
         return _round_up(self.vocab, 256)
 
     @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
     def is_encdec(self) -> bool:
         return self.n_enc_layers > 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
 
     @property
     def resolved_split_depth(self) -> int:

@@ -51,6 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import allocation as AL
 from repro_torch.core.fault import ArrivalProcess, AvailabilityModel
 from repro_torch.data.synthetic import as_device_data, make_federated_data
+from repro_torch.device import resolve_device
 from repro_torch.federated import metrics as MET
 from repro_torch.federated.simulator import make_fleet
 from repro_torch.federated.state import TrainState, init_train_state
@@ -59,17 +60,6 @@ from repro_torch.federated.strategies import (RoundContext, Strategy,
 from repro_torch.models import model as M
 from repro_torch.models.model import local_predict, predict
 from repro_torch.optim import Optimizer, get_optimizer
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the card; raises when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device by default and none is "
-                "available; pass device=\"cpu\" to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class Engine:

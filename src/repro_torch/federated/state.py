@@ -60,7 +60,7 @@ def init_train_state(cfg: ModelConfig, n_clients: int, *, seed: int = 0,
     ``np.random.default_rng(seed)`` — the reference's RNG-stream offsets."""
     params = M.init_params(cfg, torch.Generator().manual_seed(seed), device)
     hgen = torch.Generator().manual_seed(seed + 1)
-    heads = [M.init_local_head(cfg, hgen) for _ in range(n_clients)]
-    local_heads = tree_map(lambda *xs: torch.stack(xs).to(device), *heads)
+    heads = [M.init_local_head(cfg, hgen, device) for _ in range(n_clients)]
+    local_heads = tree_map(lambda *xs: torch.stack(xs), *heads)
     return TrainState(params=params, local_heads=local_heads, fleet=fleet,
                       rng=np.random.default_rng(seed))

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("tpgf_fusion", "layer_aggregate", "flash_attention")
+KERNEL_SOURCES = ("tpgf_fusion", "layer_aggregate", "flash_attention",
+                  "ssd_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,10 +1,16 @@
-"""KV-cache serving path for the dense LM family: prefill + single-token
-decode, the attention parts of the JAX package's ``models/decode.py``.
+"""KV/SSM-cache serving path for the LM families (dense, ssm, hybrid):
+prefill + single-token decode, the JAX package's ``models/decode.py``
+for those families.
 
 Cache layout (stacked over layers, mirroring the super-network stack):
-  k, v  [L, B, W, K, hd]  post-rope keys and values (W = the cache window)
-  pos   [B, W] int32      absolute position per slot, -1 = empty
-  idx   int               next position to decode
+  attention:  k, v      [L, B, W, K, hd]  post-rope keys and values
+                                          (W = the cache window)
+  ssm:        ssm_h     [L, B, nh, hd, st] fp32 recurrent state
+              ssm_conv  [L, B, k-1, d_inner] the causal conv's window
+  shared:     pos       [B, W] int32      absolute position per slot,
+                                          -1 = empty (the ssm family
+                                          keeps it, padded, unwritten)
+              idx       int               next position to decode
 
 W is the rolling window: ``cache_window`` gives the arch's sliding window
 (or ``long_context_window`` past ``LONG_CONTEXT_THRESHOLD``), else the
@@ -12,10 +18,12 @@ whole sequence; slot = position % W.
 
 Two deliberate departures from the reference, each held by
 ``tests/test_torch_decode.py``:
-  (c) ``decode_step`` writes the new k, v and pos into the cache IN PLACE
-      and returns the same dict; the JAX package returns a new cache. At
-      Llama-3.2-3B's full width and 4 × 2080 slots the cache is about
-      0.95 GB, and a copy per token would dominate decode.
+  (c) ``decode_step`` writes the new k, v and pos, and the new ssm_h and
+      ssm_conv, into the cache IN PLACE and returns the same dict; the
+      JAX package returns a new cache. At Llama-3.2-3B's full width and
+      4 × 2080 slots the KV cache is about 0.95 GB, and at Mamba2-2.7B's
+      and B = 4 ``ssm_h`` alone is 671 MB: a copy per token would
+      dominate decode.
   (d) ``cache["idx"]`` is a host ``int``, not a device scalar, so the slot
       ``idx % W`` needs no device sync per token.
 """
@@ -26,10 +34,12 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.model import (_head_logits, _row, check_family,
                                       embed_inputs, layer_role, run_stack,
-                                      torch_dtype)
+                                      stack_len, torch_dtype)
 
 LONG_CONTEXT_THRESHOLD = 65536
 
@@ -48,17 +58,30 @@ def cache_window(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device="cpu") -> Dict[str, Any]:
-    """An empty cache for ``batch`` sequences of up to ``seq_len``."""
+               device=None) -> Dict[str, Any]:
+    """An empty cache for ``batch`` sequences of up to ``seq_len``, on
+    ``device`` (None: the card, see ``repro_torch.device``)."""
     _check_servable(cfg)
+    device = resolve_device(device)
+    role = layer_role(cfg)
     W = cache_window(cfg, seq_len)
-    shape = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.resolved_head_dim)
     dtype = torch_dtype(cfg)
-    return {"idx": 0,
-            "pos": torch.full((batch, W), -1, dtype=torch.int32,
-                              device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c: Dict[str, Any] = {
+        "idx": 0,
+        "pos": torch.full((batch, W), -1, dtype=torch.int32, device=device)}
+    if role in ("dense", "hybrid"):
+        shape = (cfg.n_layers, batch, W, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if role in ("ssm", "hybrid"):
+        c["ssm_h"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_n_heads, cfg.ssm_head_dim,
+             cfg.ssm_state), dtype=torch.float32, device=device)
+        c["ssm_conv"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_conv_dim - 1, cfg.ssm_d_inner),
+            dtype=dtype, device=device)
+    return c
 
 
 def _final_norm(cfg: ModelConfig, params, h):
@@ -81,33 +104,44 @@ def prefill(cfg: ModelConfig, params, batch, decode_budget: int = 0):
     h, _, ys = run_stack(cfg, params["layers"], h, positions=pos,
                          causal=causal, window=cfg.sliding_window, emit=True)
     logits = _head_logits(cfg, params, _final_norm(cfg, params, h))
-    cache = _build_cache(cfg, ys, h.shape[0], h.shape[1], decode_budget)
+    cache = _build_cache(cfg, ys, h.shape[0], h.shape[1], decode_budget,
+                         h.device)
     return logits, cache
 
 
 def _build_cache(cfg: ModelConfig, ys, batch: int, S: int,
-                 decode_budget: int = 0):
+                 decode_budget: int, device):
     W = cache_window(cfg, S + decode_budget)
-    k, v = ys["k"], ys["v"]
-    pos = torch.arange(S, dtype=torch.int32, device=k.device).expand(
+    c: Dict[str, Any] = {"idx": S}
+    pos = torch.arange(S, dtype=torch.int32, device=device).expand(
         batch, S)
-    if W > S:  # headroom for decode
-        pad = list(k.shape)
-        pad[2] = W
-        kc = k.new_zeros(pad)
-        vc = v.new_zeros(pad)
-        kc[:, :, :S] = k
-        vc[:, :, :S] = v
-        k, v = kc, vc
+    if "k" in ys:
+        k, v = ys["k"], ys["v"]
+        if W > S:  # headroom for decode
+            pad = list(k.shape)
+            pad[2] = W
+            kc = k.new_zeros(pad)
+            vc = v.new_zeros(pad)
+            kc[:, :, :S] = k
+            vc[:, :, :S] = v
+            k, v = kc, vc
+            pos = torch.cat([pos, pos.new_full((batch, W - S), -1)], dim=1)
+        elif W < S:
+            # rolling-slot alignment: slot = position % W
+            shift = (S - W) % W
+            k = torch.roll(k[:, :, S - W:], shift, dims=2)
+            v = torch.roll(v[:, :, S - W:], shift, dims=2)
+            pos = torch.roll(pos[:, S - W:], shift, dims=1)
+        c["k"], c["v"] = k, v
+    elif W > S:  # the ssm family keeps pos padded to W, never written
         pos = torch.cat([pos, pos.new_full((batch, W - S), -1)], dim=1)
-    elif W < S:
-        # rolling-slot alignment: slot = position % W
-        shift = (S - W) % W
-        k = torch.roll(k[:, :, S - W:], shift, dims=2)
-        v = torch.roll(v[:, :, S - W:], shift, dims=2)
-        pos = torch.roll(pos[:, S - W:], shift, dims=1)
+    elif W < S:  # the reference keeps the first W positions here
+        pos = pos[:, :W]
     # pos is an expanded view until here; decode writes it in place
-    return {"idx": S, "pos": pos.contiguous(), "k": k, "v": v}
+    c["pos"] = pos.contiguous()
+    if "ssm_h" in ys:
+        c["ssm_h"], c["ssm_conv"] = ys["ssm_h"], ys["ssm_conv"]
+    return c
 
 
 # ---------------------------------------------------------------- decode step
@@ -117,27 +151,45 @@ def decode_step(cfg: ModelConfig, params, cache, token):
     in place and returned (departure (c)); ``cache["idx"]`` is a host int
     (departure (d))."""
     _check_servable(cfg)
+    role = layer_role(cfg)
     B = token.shape[0]
     idx = int(cache["idx"])
     h, _ = embed_inputs(cfg, params, {"tokens": token})
-    pos_q = torch.full((B, 1), idx, dtype=torch.int32, device=h.device)
-    kc_all, vc_all, pos = cache["k"], cache["v"], cache["pos"]
-    slot = idx % kc_all.shape[2]
-    pos[:, slot] = idx
-    mask = (pos >= 0)[:, None, None, :]
+    if "k" in cache:
+        pos_q = torch.full((B, 1), idx, dtype=torch.int32, device=h.device)
+        kc_all, vc_all, pos = cache["k"], cache["v"], cache["pos"]
+        slot = idx % kc_all.shape[2]
+        pos[:, slot] = idx
+        mask = (pos >= 0)[:, None, None, :]
     stack = params["layers"]
-    for i in range(kc_all.shape[0]):
+    for i in range(stack_len(stack)):
         p = _row(stack, i)
         x = L.apply_norm(cfg, h, p, "attn_norm")
-        q, k, v = L.project_qkv(cfg, p["attn"], x, x)
-        q = L.apply_rope(q, pos_q, cfg.rope_theta)
-        k = L.apply_rope(k, pos_q, cfg.rope_theta)
-        kc_all[i, :, slot] = k[:, 0]
-        vc_all[i, :, slot] = v[:, 0]
-        out = L.attention(q, kc_all[i], vc_all[i], mask=mask)
-        h = h + out.reshape(B, 1, -1) @ p["attn"]["wo"]
-        x = L.apply_norm(cfg, h, p, "mlp_norm")
-        h = h + L.mlp_apply(cfg, p["mlp"], x)
+        if role in ("dense", "hybrid"):
+            q, k, v = L.project_qkv(cfg, p["attn"], x, x)
+            q = L.apply_rope(q, pos_q, cfg.rope_theta)
+            k = L.apply_rope(k, pos_q, cfg.rope_theta)
+            kc_all[i, :, slot] = k[:, 0]
+            vc_all[i, :, slot] = v[:, 0]
+            out = L.attention(q, kc_all[i], vc_all[i], mask=mask)
+            out = out.reshape(B, 1, -1) @ p["attn"]["wo"]
+        if role in ("ssm", "hybrid"):
+            # the mixer reads the same normed input as the attention
+            s, st = SSM.ssm_decode_step(
+                cfg, p["ssm"], x, {"h": cache["ssm_h"][i],
+                                   "conv": cache["ssm_conv"][i]})
+            cache["ssm_h"][i] = st["h"]
+            cache["ssm_conv"][i] = st["conv"]
+        if role == "dense":
+            h = h + out
+        elif role == "ssm":
+            h = h + s
+        else:
+            h = h + p["branch_scale_attn"] * out + \
+                p["branch_scale_ssm"] * s
+        if role != "ssm":
+            x = L.apply_norm(cfg, h, p, "mlp_norm")
+            h = h + L.mlp_apply(cfg, p["mlp"], x)
     logits = _head_logits(cfg, params, _final_norm(cfg, params, h))
     cache["idx"] = idx + 1
     return logits, cache

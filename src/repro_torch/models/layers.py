@@ -177,6 +177,15 @@ def project_qkv(cfg: ModelConfig, p, xq, xkv):
 
 # ----------------------------------------------------------------------- mlp
 
+def silu(x):
+    """``jax.nn.silu``: x·sigmoid(x), the sigmoid as 1 / (1 + e^−x), each op
+    rounded in x's dtype as XLA rounds it (``F.silu`` rounds once, so in
+    bf16 about a third of its outputs sit one ulp off the reference's).
+    ``torch.reciprocal``, not ``1.0 / t``, which PyTorch runs as a
+    reciprocal and then a multiply by 1.0: the same bits, one pass more."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def mlp_params(cfg: ModelConfig, gen: torch.Generator, dtype):
     dm, dff = cfg.d_model, cfg.d_ff
     down_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
@@ -197,7 +206,7 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator, dtype):
 def mlp_apply(cfg: ModelConfig, p, x):
     # jax.nn.gelu defaults to the tanh approximation
     if cfg.mlp == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+        return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     if cfg.mlp == "geglu":
         return (F.gelu(x @ p["w_gate"], approximate="tanh")
                 * (x @ p["w_up"])) @ p["w_down"]

@@ -1,6 +1,9 @@
 """The stacked-layer model: the ``vit`` family ((patch embed) -> the layer
-stack -> (mean pool, head)) and the ``dense`` causal LM family ((token
-embed) -> the rope'd causal layer stack -> (final norm, untied unembed)).
+stack -> (mean pool, head)) and the causal LM families ((token embed) ->
+the layer stack -> (final norm, untied unembed)): ``dense`` (rope'd causal
+attention and an MLP per layer), ``ssm`` (one Mamba-2 mixer per layer,
+attention-free) and ``hybrid`` (attention and a Mamba-2 mixer side by
+side on one normed input, then an MLP).
 
 The stacked tree (leading ``L`` axis) is the paper's weight-sharing
 super-network: a client subnetwork of depth ``d`` is the row slice
@@ -11,15 +14,15 @@ slices the stack at ``d`` (the JAX package pins its static and runtime
 forms bit-exact, and ``tests/test_torch_model.py`` holds this slice
 against its runtime form).
 
-The dense family serves (``models/decode.py``): ``init_params``,
-``embed_inputs`` and ``run_stack(emit=True)``. Its SuperSFL training
+The LM families serve (``models/decode.py``): ``init_params``,
+``embed_inputs`` and ``run_stack(emit=True)``. Their SuperSFL training
 surfaces (prefix/suffix, losses, the TPGF split) come with the LM training
 slice (ROADMAP queue 1, item 1) and raise until then. The reference's
 ``_constrain_batch`` pins a sharding and is a no-op on one device; the
 port has no counterpart (sharding is ROADMAP queue 1, item 8).
 
 Public surface (the JAX module's names):
-  init_params(cfg, gen)
+  init_params(cfg, gen, device)
   layer_role / embed_inputs / run_stack
   prefix_apply(cfg, params, batch, d)     -> (z, aux)   smashed data
   client_apply(cfg, client_params, batch) -> (z, aux)
@@ -36,19 +39,21 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("vit", "dense"):
+    if cfg.family not in ("vit", "dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family={cfg.family!r}: the port runs the vit and dense "
-            "families only so far (ROADMAP queue 1, item 6: the rest of the "
-            "model zoo)")
+            f"family={cfg.family!r}: the port runs the vit, dense, ssm and "
+            "hybrid families only so far (ROADMAP queue 1, item 6: the rest "
+            "of the model zoo)")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -74,16 +79,25 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 # ----------------------------------------------------------------- stack init
 
 def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
-    """One layer's parameter tree: the reference's "enc" (vit) and "dense"
-    roles have the same leaves."""
+    """One layer's parameter tree for the config's role: "enc" (vit) and
+    "dense" have the same leaves; "ssm" a norm and the mixer; "hybrid"
+    both, plus a per-channel scale for each branch."""
+    role = layer_role(cfg)
     dm = cfg.d_model
     p: Params = {}
-    p.update({f"attn_norm_{k}": v
-              for k, v in L.norm_params(cfg, dm, dtype).items()})
-    p["attn"] = L.attn_params(cfg, gen, dtype)
-    p.update({f"mlp_norm_{k}": v
-              for k, v in L.norm_params(cfg, dm, dtype).items()})
-    p["mlp"] = L.mlp_params(cfg, gen, dtype)
+    if role in ("enc", "dense", "hybrid", "ssm"):
+        p.update({f"attn_norm_{k}": v
+                  for k, v in L.norm_params(cfg, dm, dtype).items()})
+    if role in ("enc", "dense", "hybrid"):
+        p["attn"] = L.attn_params(cfg, gen, dtype)
+        p.update({f"mlp_norm_{k}": v
+                  for k, v in L.norm_params(cfg, dm, dtype).items()})
+        p["mlp"] = L.mlp_params(cfg, gen, dtype)
+    if role in ("ssm", "hybrid"):
+        p["ssm"] = SSM.ssm_params(cfg, gen, dtype)
+    if role == "hybrid":
+        p["branch_scale_attn"] = L.ones((dm,), dtype)
+        p["branch_scale_ssm"] = L.ones((dm,), dtype)
     return p
 
 
@@ -92,28 +106,36 @@ def _stack(cfg: ModelConfig, gen: torch.Generator, n: int, dtype) -> Params:
     return tree_map(lambda *xs: torch.stack(xs), *per)
 
 
-def init_local_head(cfg: ModelConfig, gen: torch.Generator,
-                    device="cpu") -> Params:
-    """The fault-tolerant client head phi_i alone."""
+def _local_head(cfg: ModelConfig, gen: torch.Generator) -> Params:
     dtype = torch_dtype(cfg)
-    p = {"local_head": L.dense_init(gen, cfg.d_model, cfg.n_classes, dtype),
-         "local_head_bias": L.zeros((cfg.n_classes,), dtype)}
-    return {k: v.to(device) for k, v in p.items()}
+    return {"local_head": L.dense_init(gen, cfg.d_model, cfg.n_classes,
+                                       dtype),
+            "local_head_bias": L.zeros((cfg.n_classes,), dtype)}
+
+
+def init_local_head(cfg: ModelConfig, gen: torch.Generator,
+                    device=None) -> Params:
+    """The fault-tolerant client head phi_i alone, on ``device`` (None:
+    the card, see ``repro_torch.device``)."""
+    device = resolve_device(device)
+    return {k: v.to(device) for k, v in _local_head(cfg, gen).items()}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device="cpu") -> Params:
+                device=None) -> Params:
     """The reference's shapes, dtypes and distributions, drawn from a
     ``torch.Generator`` on its own device (``jax.random`` bits cannot be
     reproduced in torch; tests carry the reference's weights across with
-    ``repro_torch.bridge``), then moved to ``device``. A CUDA generator
-    draws a full-size model on the card; ``gen=None`` with
-    ``device="meta"`` gives shapes and dtypes only.
+    ``repro_torch.bridge``), then moved to ``device`` (None: the card,
+    see ``repro_torch.device``). A CUDA generator draws a full-size model
+    on the card; ``gen=None`` with ``device="meta"`` gives shapes and
+    dtypes only.
 
-    The dense family's global head is always untied (``unembed``), as in
+    The LM families' global head is always untied (``unembed``), as in
     the reference: SuperSFL puts the embedding on the client and the head
     on the server."""
     check_family(cfg)
+    device = resolve_device(device)
     dtype = torch_dtype(cfg)
     dm = cfg.d_model
     p: Params = {}
@@ -126,7 +148,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
         p["head"] = L.dense_init(gen, dm, cfg.n_classes, dtype)
         p["head_bias"] = L.zeros((cfg.n_classes,), dtype)
-        p.update(init_local_head(cfg, gen))
+        p.update(_local_head(cfg, gen))
     else:
         p["embed"] = L.normal(gen, (cfg.padded_vocab, dm), dtype)
         p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
@@ -167,13 +189,33 @@ def _attn_block(cfg: ModelConfig, p, h, *, positions, causal, window,
     return out.reshape(B, S, -1) @ p["attn"]["wo"], (k, v)
 
 
-def _layer(cfg: ModelConfig, p, h, *, positions, causal, window,
-           use_rope: bool = False):
-    out, kv = _attn_block(cfg, p, h, positions=positions, causal=causal,
-                          window=window, use_rope=use_rope)
-    h = h + out
+def _ssm_block(cfg: ModelConfig, p, h, emit: bool):
+    """The mixer on the normed input: (out, {"ssm_h", "ssm_conv"} when
+    ``emit``, else {})."""
+    x = L.apply_norm(cfg, h, p, "attn_norm")
+    if emit:
+        s, hf, conv = SSM.ssm_apply(cfg, p["ssm"], x, return_state=True)
+        return s, {"ssm_h": hf, "ssm_conv": conv}
+    return SSM.ssm_apply(cfg, p["ssm"], x), {}
+
+
+def _layer(cfg: ModelConfig, role: str, p, h, *, positions, causal, window,
+           use_rope: bool = False, emit: bool = False):
+    """One layer of ``role``; returns (h, the layer's cache entries)."""
+    if role == "ssm":
+        s, ys = _ssm_block(cfg, p, h, emit)
+        return h + s, ys
+    out, (k, v) = _attn_block(cfg, p, h, positions=positions, causal=causal,
+                              window=window, use_rope=use_rope)
+    ys = {"k": k, "v": v}
+    if role == "hybrid":
+        s, st = _ssm_block(cfg, p, h, emit)
+        ys.update(st)
+        h = h + p["branch_scale_attn"] * out + p["branch_scale_ssm"] * s
+    else:
+        h = h + out
     x = L.apply_norm(cfg, h, p, "mlp_norm")
-    return h + L.mlp_apply(cfg, p["mlp"], x), kv
+    return h + L.mlp_apply(cfg, p["mlp"], x), ys
 
 
 def _row(tree, i: int):
@@ -190,18 +232,23 @@ def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
               causal: bool = False, window: int = 0, emit: bool = False):
     """Apply every row of ``stack`` to ``h`` in order (the caller slices
     the depth window). Returns (h, aux), and with ``emit`` (h, aux, ys):
-    ys = {"k", "v"} stacks each layer's post-rope k and v, [L, B, S, K,
-    hd]. aux is the MoE router loss, 0.0 for the vit and dense families."""
-    use_rope = layer_role(cfg) in ("dense", "moe", "hybrid")
-    ks, vs = [], []
+    ys stacks each layer's cache entries along a leading L axis — the
+    post-rope "k" and "v" [L, B, S, K, hd] of an attention layer, the
+    final SSM state "ssm_h" [L, B, nh, hd, st] (fp32) and the conv tail
+    "ssm_conv" [L, B, k-1, d_inner] of a mixer. aux is the MoE router
+    loss, 0.0 for the families the port runs."""
+    role = layer_role(cfg)
+    use_rope = role in ("dense", "moe", "hybrid")
+    per = []
     for i in range(stack_len(stack)):
-        h, (k, v) = _layer(cfg, _row(stack, i), h, positions=positions,
-                           causal=causal, window=window, use_rope=use_rope)
+        h, ys = _layer(cfg, role, _row(stack, i), h, positions=positions,
+                       causal=causal, window=window, use_rope=use_rope,
+                       emit=emit)
         if emit:
-            ks.append(k)
-            vs.append(v)
+            per.append(ys)
     if emit:
-        return h, 0.0, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return h, 0.0, {k: torch.stack([ys[k] for ys in per])
+                        for k in (per[0] if per else {})}
     return h, 0.0
 
 
@@ -210,9 +257,9 @@ def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
 def embed_inputs(cfg: ModelConfig, params: Params, batch) -> Tuple[Any, Any]:
     """Returns (h [B,S,dm], positions [B,S]). vit: the reference's
     patchify order (rows of patches, then columns, then pixels and
-    channels); dense: ``embed[tokens]·√d_model``."""
+    channels); the LM families: ``embed[tokens]·√d_model``."""
     check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family != "vit":
         emb = params["embed"]
         # the reference's weak-typed scalar is rounded to the embedding's
         # dtype before the product, as this 0-d tensor is

@@ -63,7 +63,8 @@ def test_port_init_params_has_reference_keys_shapes_dtypes(dtype):
     jcfg = JB.get_reduced("vit16_cifar").replace(dtype=dtype, **SMALL)
     tcfg = TB.get_reduced("vit16_cifar").replace(dtype=dtype, **SMALL)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(1))
-    tp = TM.init_params(tcfg, torch.Generator().manual_seed(1))
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(1),
+                        device="cpu")
     want = {k: (v.shape, str(v.dtype)) for k, v in _flat_np(jp).items()}
     got = {p: (tuple(x.shape), str(x.dtype).replace("torch.", ""))
            for p, x in tree_flatten_with_path(tp)}

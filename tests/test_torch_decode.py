@@ -124,7 +124,8 @@ def test_decode_matches_teacher_forced(arch, use_pallas):
     """The port alone: decode logits == the full prefill's, position by
     position (``test_decode_parity.py``'s property and bound)."""
     tcfg = TB.get_reduced(arch).replace(use_pallas=use_pallas)
-    tp = TM.init_params(tcfg, torch.Generator().manual_seed(2))
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(2),
+                        device="cpu")
     S = 12
     toks = _tokens(S, seed=5)
     with torch.no_grad():
@@ -165,7 +166,7 @@ def test_cache_window_and_init_cache_match_reference():
         for seq in (8, 16, 40, 70000):
             assert TD.cache_window(tcfg, seq) == JD.cache_window(jcfg, seq)
         want = JD.init_cache(jcfg, 3, 40)
-        got = TD.init_cache(tcfg, 3, 40)
+        got = TD.init_cache(tcfg, 3, 40, device="cpu")
         for key in ("k", "v", "pos"):
             assert tuple(got[key].shape) == want[key].shape
             np.testing.assert_array_equal(_np(got[key]),
@@ -230,7 +231,7 @@ def test_serving_steps():
 def test_no_decode_path_for_the_classifier():
     cfg = TB.get_reduced("vit16_cifar")
     with pytest.raises(ValueError, match="no decode path"):
-        TD.init_cache(cfg, 1, 8)
+        TD.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_serve_example_on_the_cpu(capsys):

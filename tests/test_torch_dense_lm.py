@@ -202,7 +202,8 @@ def test_attention_mask_with_valid_slots():
 def test_init_params_matches_reference_shapes_and_distributions(arch):
     jcfg, tcfg = JB.get_reduced(arch), TB.get_reduced(arch)
     want = _flat_jax(JM.init_params(jcfg, jax.random.PRNGKey(0)))
-    tp = TM.init_params(tcfg, torch.Generator().manual_seed(0))
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(0),
+                        device="cpu")
     got = {p: x for p, x in tree_flatten_with_path(tp)}
     assert sorted(got) == sorted(want)
     for path, x in got.items():
@@ -252,10 +253,11 @@ def test_training_surfaces_are_not_ported_yet():
     cfg = TB.get_reduced("llama3_2_3b")
     with pytest.raises(NotImplementedError, match="item 1"):
         Engine(cfg, 3, "ssfl", device="cpu")
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
     with pytest.raises(NotImplementedError, match="item 1"):
         TM.prefix_apply(cfg, params, batch, 1)
     with pytest.raises(NotImplementedError, match="item 6"):
-        TM.init_params(TB.get_reduced("llama3_2_3b").replace(family="ssm"),
-                       torch.Generator())
+        TM.init_params(TB.get_reduced("llama3_2_3b").replace(family="moe"),
+                       torch.Generator(), device="cpu")

@@ -1,0 +1,47 @@
+"""The port's public constructors run on the card unless told otherwise:
+``init_params``, ``init_local_head`` and ``init_cache`` resolve
+``device=None`` to CUDA and, without a card, raise and ask for
+``device="cpu"``; asked for the CPU they build there. (``Engine`` is
+held to the same rule by ``tests/test_torch_engine.py``.)"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
+from repro_torch.configs import base as TB  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.federated import engine as TE  # noqa: E402
+from repro_torch.models import decode as TD  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+
+def _constructors():
+    vit = TB.get_reduced("vit16_cifar")
+    gen = torch.Generator().manual_seed(0)
+    return {
+        "init_params": lambda **kw: TM.init_params(
+            TB.get_reduced("mamba2_2_7b"), gen, **kw),
+        "init_local_head": lambda **kw: TM.init_local_head(vit, gen, **kw),
+        "init_cache": lambda **kw: TD.init_cache(
+            TB.get_reduced("hymba_1_5b"), 2, 8, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["init_params", "init_local_head",
+                                  "init_cache"])
+def test_constructors_default_to_the_card(monkeypatch, name):
+    make = _constructors()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+    built = make(device="cpu")
+    tensors = [x for x in tree_leaves(built) if isinstance(x, torch.Tensor)]
+    assert tensors and all(x.device.type == "cpu" for x in tensors)
+
+
+def test_resolve_device_is_the_engines():
+    assert TE.resolve_device is resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device("meta") == torch.device("meta")

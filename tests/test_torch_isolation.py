@@ -34,9 +34,9 @@ def _imported_roots(path: Path):
 def test_port_sources_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*")}
     for want in ("csrc/tpgf_fusion.cu", "csrc/layer_aggregate.cu",
-                 "csrc/flash_attention.cu",
+                 "csrc/flash_attention.cu", "csrc/ssd_scan.cu",
                  "kernels/tpgf_fusion/ops.py", "kernels/layer_aggregate/ops.py",
-                 "kernels/flash_attention/ops.py",
+                 "kernels/flash_attention/ops.py", "kernels/ssd_scan/ops.py",
                  "federated/engine.py", "bridge.py"):
         assert want in names, want
 

@@ -13,7 +13,12 @@ clients in order, the plain version's einsum in another order); bf16 2e-2.
 bits on two calls. ``flash_attention`` within the reference kernel's own
 test tolerances, 2e-5 (fp32) and 3e-2 (bf16), at ``chip_smoke.py``'s
 shapes: the serve path's, a window, MQA, every head dim, a ragged S and
-non-causal cases.
+non-causal cases. ``ssd_scan`` within 1e-4 of the largest magnitude of y
+and of h (the reference kernel's own bar; its chunk differs from the
+plain version's, so the sums run in other orders) at ``chip_smoke.py``'s
+shapes: the Mamba2 and Hymba serve shapes, ``test_kernels.py``'s, every
+(head_dim, state) pair, ragged S, no D, and dt near 1 with A = −16, where
+an unmasked upper half would overflow.
 """
 import pytest
 
@@ -234,3 +239,103 @@ def test_flash_attention_kernel_refuses_grad(cuda):
     with torch.no_grad():
         O.flash_attention(q, kv, kv)
     assert O.flash_attention.launches == before + 1
+
+
+# the chip smoke's ssd_scan cases: (Bt, S, nh, hd, st, the plain
+# version's chunk: one that divides S)
+SSD_CASES = [
+    (4, 2048, 80, 64, 128, 256),         # Mamba2-2.7B serve shape
+    (4, 2048, 50, 64, 16, 256),          # Hymba-1.5B serve shape
+    (2, 256, 4, 32, 16, 128),            # test_kernels.py's four
+    (1, 128, 2, 64, 32, 64),
+    (2, 64, 3, 32, 16, 64),
+    (1, 512, 2, 32, 128, 128),
+    (1, 32, 2, 8, 4, 16),                # the recurrence test's
+    (2, 96, 4, 32, 8, 96),               # Hymba reduced (hd 32, st 8)
+    (4, 2000, 80, 64, 128, 250),         # ragged: 2000 = 62·32 + 16
+    (2, 77, 4, 32, 16, 77),              # ragged, one plain chunk
+    (3, 1, 2, 64, 128, 1),               # one row
+]
+
+
+def _ssd_inputs(cuda, Bt, S, nh, hd, st, seed, *, dt_range=(0.01, 0.2),
+                A=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((Bt, S, nh, hd), generator=g, device=cuda)
+    lo, hi = dt_range
+    dt = lo + (hi - lo) * torch.rand((Bt, S, nh), generator=g, device=cuda)
+    if A is None:    # the model's A = −exp(log(linspace(1, 16)))
+        A = -torch.linspace(1.0, 16.0, nh, device=cuda)
+    B = torch.randn((Bt, S, st), generator=g, device=cuda)
+    C = torch.randn((Bt, S, st), generator=g, device=cuda)
+    D = torch.randn((nh,), generator=g, device=cuda)
+    return x, dt, A, B, C, D
+
+
+def _close_to_largest(got, want, tol=1e-4):
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_scan_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels.ssd_scan import ops as O, ref as R
+    Bt, S, nh, hd, st, chunk = case
+    x, dt, A, B, C, D = _ssd_inputs(cuda, Bt, S, nh, hd, st, 7)
+    before = O.ssd_scan.launches
+    y, h = O.ssd_scan(x, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    assert O.ssd_scan.launches == before + 1
+    assert y.shape == x.shape and h.shape == (Bt, nh, hd, st)
+    want_y, want_h = R.ssd_ref(x, dt, A, B, C, D, chunk=chunk)
+    _close_to_largest(y, want_y)
+    _close_to_largest(h, want_h)
+
+
+def test_ssd_scan_kernel_without_d_and_where_the_upper_half_overflows(cuda):
+    from repro_torch.kernels.ssd_scan import ops as O, ref as R
+    x, dt, A, B, C, _ = _ssd_inputs(cuda, 2, 256, 8, 64, 128, 8)
+    y, h = O.ssd_scan(x, dt, A, B, C)                  # D = None
+    want_y, want_h = R.ssd_ref(x, dt, A, B, C, chunk=128)
+    _close_to_largest(y, want_y)
+    _close_to_largest(h, want_h)
+    x, dt, A, B, C, D = _ssd_inputs(
+        cuda, 2, 256, 8, 64, 128, 9, dt_range=(0.5, 1.0),
+        A=torch.full((8,), -16.0, device=cuda))
+    y, h = O.ssd_scan(x, dt, A, B, C, D)
+    want_y, want_h = R.ssd_ref(x, dt, A, B, C, D, chunk=256)
+    _close_to_largest(y, want_y)
+    _close_to_largest(h, want_h)
+
+
+def test_ssd_scan_kernel_checks_its_inputs(cuda):
+    from repro_torch.kernels.ssd_scan import ops as O
+    x, dt, A, B, C, D = _ssd_inputs(cuda, 1, 16, 2, 32, 16, 10)
+    b24 = torch.zeros((1, 16, 24), device=cuda)
+    with pytest.raises(ValueError, match="not in"):   # (hd, st) = (32, 24)
+        O.ssd_scan(x, dt, A, b24, b24, D)
+    with pytest.raises(ValueError, match="not in"):   # head_dim 48
+        O.ssd_scan(torch.zeros((1, 16, 2, 48), device=cuda), dt, A, B, C)
+    with pytest.raises(ValueError):                   # B and C differ
+        O.ssd_scan(x, dt, A, B, b24, D)
+    with pytest.raises(TypeError):
+        O.ssd_scan(x.double(), dt, A, B, C, D)
+    strided = torch.zeros((1, 16, 32), device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        O.ssd_scan(x, dt, A, B, strided, D)
+    with pytest.raises(ValueError, match="fit"):      # A of the wrong size
+        O.ssd_scan(x, dt, A[:1], B, C, D)
+
+
+def test_ssd_scan_kernel_refuses_grad(cuda):
+    from repro_torch.kernels.ssd_scan import ops as O
+    x, dt, A, B, C, D = _ssd_inputs(cuda, 1, 64, 2, 64, 16, 11)
+    x.requires_grad_(True)
+    before = O.ssd_scan.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        O.ssd_scan(x, dt, A, B, C, D)
+    assert O.ssd_scan.launches == before
+    with torch.no_grad():
+        O.ssd_scan(x, dt, A, B, C, D)
+    assert O.ssd_scan.launches == before + 1
