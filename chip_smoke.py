@@ -20,7 +20,11 @@ Phases, one JSON line each (plus the card's name and power limit as
      where one computes the same function (none does for ``ssd_scan``),
      and the bound (bytes over 3.35 TB/s vs operations over the peak of
      their type: 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s
-     bf16);
+     bf16); ``flash_attention`` and ``ssd_scan`` are timed at both of
+     their paths' shapes and carry their ``ptxas`` registers and spills;
+     then, where the machine has ``ncu``, one ``ncu --set full`` profile
+     of each at its path's shape (``--ncu-target`` is that profile's
+     target, not a mode to run by hand);
   4. main path — full-width ViT-16-CIFAR trained by ``ssfl`` for two rounds
      through ``repro_torch.federated.Engine`` with the kernels on
      (``use_pallas=True``), then evaluated with the global head and the
@@ -70,6 +74,8 @@ import gc
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -86,7 +92,7 @@ LADDER = (0.25, 0.5, 0.75, 1.0)     # the width path's supernet tiers
 PORT_KERNELS = ("fuse_kernel", "aggregate_kernel", "tier_sum_kernel",
                 "sumsq_partial_kernel", "sumsq_final_kernel",
                 "flash_attention_f32_kernel", "flash_attention_bf16_kernel",
-                "ssd_scan_kernel")
+                "ssd_cb_kernel", "ssd_scan_kernel")
 SERVE_ARCH = "llama3_2_3b"
 SSM_ARCH = "mamba2_2_7b"
 HYBRID_ARCH = "hymba_1_5b"
@@ -94,6 +100,9 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # ssd_scan against its plain version: y and h within this much of their
 # largest magnitude, the reference kernel's own bar (test_kernels.py)
 SSD_TOL = 1e-4
+# the chunk at which _ssd_bound counts the chunked form's own terms: fixed,
+# so the yardstick does not move with the kernel's own chunk
+SSD_BOUND_CHUNK = 32
 # kernels on vs off, and decode vs the teacher-forced prefill, as
 # max |Δlogit| / max |logit|: both sides run bf16 through 28 layers, and
 # the flash kernel rounds its output to bf16 from another fp32 order than
@@ -189,7 +198,34 @@ def phase_environment():
 
 
 # --------------------------------------------------------------- phase 2
+def ptxas_figures(log: str, kernel: str):
+    """``{"<kernel><args>": {"registers", "spill_stores", "spill_loads"}}``
+    for every instance of ``kernel`` in an ``nvcc -Xptxas -v`` log."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            cur = None
+            if f"{kernel}I" in name or name.endswith(kernel):
+                args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
+                cur = f"{kernel}<{', '.join(args)}>" if args else kernel
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
+    """Builds every source; returns ``{source: nvcc's log}``."""
     from repro_torch.kernels import build as B
     t0 = time.perf_counter()
     res = B.build(B.KERNEL_SOURCES, ptxas_verbose=True)
@@ -199,6 +235,7 @@ def phase_build():
           "ptxas": {k: [ln for ln in v["log"].splitlines()
                         if "registers" in ln or "spill" in ln]
                     for k, v in res.items()}})
+    return {k: v["log"] for k, v in res.items()}
 
 
 # --------------------------------------------------------------- phase 3
@@ -413,11 +450,12 @@ def _attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return total
 
 
-def phase_flash(shape):
+def phase_flash(shape, hybrid_shape, build_log):
     """``flash_attention`` against its plain version on the card: the
-    serve path's shape in bf16 and fp32, a window, MQA, every head dim,
-    a ragged S and non-causal cases; timed at the serve path's shape in
-    bf16 beside SDPA."""
+    serve path's shape and Hymba's in bf16 and fp32, a window, MQA, every
+    head dim, ragged S (one row past a tile), a window across tile edges,
+    Sq = 1, Sq and Skv unequal, and non-causal cases; timed in bf16 at the
+    serve path's shape and at Hymba's, each beside SDPA and its bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as O, ref as R
@@ -425,27 +463,40 @@ def phase_flash(shape):
     dev = "cuda"
     B, S, H, K, hd = shape
     tols = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
-    cases = [(f"path/{B}x{S}x{H}x{K}x{hd}", (B, S, H, K, hd), True, 0),
-             ("window256", (1, S, H, K, hd), True, 256),
-             ("mqa", (2, 512, 8, 1, hd), True, 0),
-             ("hd32", (1, 256, 4, 2, 32), True, 0),
-             ("hd64", (1, 256, 4, 2, 64), True, 0),
-             ("hd128", (1, 256, 4, 2, 128), True, 0),
-             ("hd256", (1, 256, 4, 2, 256), True, 0),
-             ("ragged1000", (2, 1000, H, K, hd), True, 0),
-             ("noncausal", (1, 300, 4, 4, 64), False, 0),
-             ("noncausal_window100", (1, 300, 4, 4, 64), False, 100)]
+    hb, hs, hh, hk, hhd = hybrid_shape
+    # (key, (B, Sq, Skv, H, K, hd), causal, window)
+    cases = [(f"path/{B}x{S}x{H}x{K}x{hd}", (B, S, S, H, K, hd), True, 0),
+             (f"hymba/{hb}x{hs}x{hh}x{hk}x{hhd}", (hb, hs, hs, hh, hk, hhd),
+              True, 0),
+             ("window256", (1, S, S, H, K, hd), True, 256),
+             ("mqa", (2, 512, 512, 8, 1, hd), True, 0),
+             ("hd32", (1, 256, 256, 4, 2, 32), True, 0),
+             ("hd64", (1, 256, 256, 4, 2, 64), True, 0),
+             ("hd128", (1, 256, 256, 4, 2, 128), True, 0),
+             ("hd256", (1, 256, 256, 4, 2, 256), True, 0),
+             ("ragged1000", (2, 1000, 1000, H, K, hd), True, 0),
+             ("ragged129", (2, 129, 129, 4, 2, 128), True, 0),
+             ("window100_causal", (1, 300, 300, 4, 4, 64), True, 100),
+             ("sq1", (2, 1, 1, 4, 2, 64), True, 0),
+             ("sq1000_skv129", (2, 1000, 129, 4, 2, 128), True, 0),
+             ("sq129_skv1000", (2, 129, 1000, 4, 2, 128), True, 0),
+             ("sq1_skv300_noncausal", (2, 1, 300, 4, 2, 256), False, 0),
+             ("noncausal", (1, 300, 300, 4, 4, 64), False, 0),
+             ("noncausal_window100", (1, 300, 300, 4, 4, 64), False, 100)]
 
-    def inputs(b, s, h, k, d, dtype):
-        return (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype),
-                torch.randn((b, s, k, d), generator=gen, device=dev).to(dtype),
-                torch.randn((b, s, k, d), generator=gen, device=dev).to(dtype))
+    def inputs(b, sq, skv, h, k, d, dtype):
+        return (torch.randn((b, sq, h, d), generator=gen,
+                            device=dev).to(dtype),
+                torch.randn((b, skv, k, d), generator=gen,
+                            device=dev).to(dtype),
+                torch.randn((b, skv, k, d), generator=gen,
+                            device=dev).to(dtype))
 
     checks = {}
     with torch.no_grad():
-        for name, (b, s, h, k, d), causal, window in cases:
+        for name, (b, sq, skv, h, k, d), causal, window in cases:
             for dtype, tol in tols.items():
-                q, kk, v = inputs(b, s, h, k, d, dtype)
+                q, kk, v = inputs(b, sq, skv, h, k, d, dtype)
                 key = f"{name}/{str(dtype)[6:]}"
                 checks[key] = _check(
                     f"flash_attention {key}",
@@ -456,15 +507,21 @@ def phase_flash(shape):
                 del q, kk, v
         torch.cuda.synchronize()
 
-        q, kk, v = inputs(B, S, H, K, hd, torch.bfloat16)
-        ms = time_ms(lambda: O.flash_attention(q, kk, v, causal=True))
-        plain_ms = time_ms(lambda: R.flash_attention_ref(q, kk, v,
-                                                         causal=True))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True))
-    flops = 4.0 * hd * B * H * _attended_pairs(S, S, True, 0)
-    nbytes = 2.0 * (2 * q.numel() + kk.numel() + v.numel())
+        def timed(b, s, h, k, d):
+            q, kk, v = inputs(b, s, s, h, k, d, torch.bfloat16)
+            ms = time_ms(lambda: O.flash_attention(q, kk, v, causal=True))
+            plain_ms = time_ms(lambda: R.flash_attention_ref(q, kk, v,
+                                                             causal=True))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True))
+            flops = 4.0 * d * b * h * _attended_pairs(s, s, True, 0)
+            nbytes = 2.0 * (2 * q.numel() + kk.numel() + v.numel())
+            return ms, plain_ms, library_ms, flops, nbytes
+
+        ms, plain_ms, library_ms, flops, nbytes = timed(B, S, H, K, hd)
+        h_ms, h_plain_ms, h_library_ms, h_flops, h_nbytes = timed(
+            *hybrid_shape)
     bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -476,18 +533,24 @@ def phase_flash(shape):
            "library_call": "F.scaled_dot_product_attention(q, k, v "
                            "transposed to [B, H, S, hd] views, "
                            "is_causal=True, enable_gqa=True)",
-           "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "hybrid_shape": list(hybrid_shape), "hybrid_ms": h_ms,
+           "hybrid_plain_ms": h_plain_ms,
+           "hybrid_library_ms": h_library_ms,
+           "hybrid_bound_ms": bound(h_nbytes, h_flops, BF16_FLOPS_PER_S)[0],
+           "ptxas": ptxas_figures(build_log, "flash_attention_bf16_kernel")}
     emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
     return row
 
 
-def _ssd_bound(Bt, S, nh, hd, st, cl):
+def _ssd_bound(Bt, S, nh, hd, st, cl=SSD_BOUND_CHUNK):
     """(bytes, operations) of the SSD scan: the least work the function
     needs, the two state contractions (C·hᵀ and the state update, 2·hd·st
-    each per row and head), plus the chunked form's own terms at the
-    kernel's chunk ``cl``: the causal half of W·u, cl²·hd per (batch, head,
-    chunk), and C·Bᵀ, 2·cl²·st per (batch, chunk). Bytes: x and y once
-    each, B, C, dt, A, D and h, fp32."""
+    each per row and head), plus the chunked form's own terms at a chunk
+    ``cl`` (fixed at SSD_BOUND_CHUNK, whatever the kernel's own chunk): the
+    causal half of W·u, cl²·hd per (batch, head, chunk), and C·Bᵀ,
+    2·cl²·st per (batch, chunk). Bytes: x and y once each, B, C, dt, A, D
+    and h, fp32."""
     nc = math.ceil(S / cl)
     flops = (4.0 * Bt * S * nh * hd * st + Bt * nh * nc * cl * cl * hd
              + Bt * nc * 2.0 * cl * cl * st)
@@ -496,14 +559,15 @@ def _ssd_bound(Bt, S, nh, hd, st, cl):
     return nbytes, flops
 
 
-def phase_ssd_scan(ssm_shape, hybrid_shape):
+def phase_ssd_scan(ssm_shape, hybrid_shape, build_log):
     """``ssd_scan`` against its plain version (``ssd_ref`` at a chunk that
     divides S) on the card: the Mamba2 and Hymba serve shapes,
-    ``test_kernels.py``'s shapes, every (head_dim, state) pair, ragged S,
-    D = None, and dt near 1 with A = −16, where an unmasked upper half
-    would overflow; y and h finite and within ``SSD_TOL`` of their
-    largest magnitude. Timed at the Mamba2 serve shape beside the plain
-    version at the chunk ``ssm_apply`` takes (256)."""
+    ``test_kernels.py``'s shapes, every (head_dim, state) pair, ragged S
+    (S not a multiple of the kernel's chunk), S = 1, an odd number of
+    heads, D = None, and dt near 1 with A = −16, where an unmasked upper
+    half would overflow; y and h finite and within ``SSD_TOL`` of their
+    largest magnitude. Timed at the Mamba2 and Hymba serve shapes beside
+    the plain version at the chunk ``ssm_apply`` takes (256)."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as O, ref as R
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -545,6 +609,9 @@ def phase_ssd_scan(ssm_shape, hybrid_shape):
               {}),
              ("ragged77", (2, 77, 4, 32, 16), 77, {}),
              ("one_row", (3, 1, 2, 64, 128), 1, {}),
+             ("ragged999", (2, 999, 6, 64, 128), 333, {}),
+             ("one_row_hymba_heads", (1, 1, 50, 64, 16), 1, {}),
+             ("odd_heads7", (2, 256, 7, 32, 16), 128, {}),
              ("no_D", (2, 256, 8, 64, 128), 128, {"no_d": True}),
              ("overflow_dt1_A-16", (2, 256, 8, 64, 128), 256,
               {"dt_range": (0.5, 1.0), "A": -16.0})]
@@ -570,9 +637,9 @@ def phase_ssd_scan(ssm_shape, hybrid_shape):
                 time_ms(lambda: R.ssd_ref(x, dt, A, B, C, D, chunk=256)))
             del x, dt, B, C
     ms, plain_ms = times["mamba2"]
-    nbytes, flops = _ssd_bound(*ssm_shape, O.KERNEL_CHUNK)
+    nbytes, flops = _ssd_bound(*ssm_shape)
     bound_ms, bound_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
-    hb_bytes, hb_flops = _ssd_bound(*hybrid_shape, O.KERNEL_CHUNK)
+    hb_bytes, hb_flops = _ssd_bound(*hybrid_shape)
     row = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
@@ -587,7 +654,10 @@ def phase_ssd_scan(ssm_shape, hybrid_shape):
            "hybrid_ms": times["hymba"][0],
            "hybrid_plain_ms": times["hymba"][1],
            "hybrid_bound_ms": bound(hb_bytes, hb_flops,
-                                    FP32_FLOPS_PER_S)[0]}
+                                    FP32_FLOPS_PER_S)[0],
+           "kernel_chunk": O.KERNEL_CHUNK,
+           "ptxas": {**ptxas_figures(build_log, "ssd_cb_kernel"),
+                     **ptxas_figures(build_log, "ssd_scan_kernel")}}
     emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
     return row
 
@@ -1000,6 +1070,75 @@ def _profile(step, unprofiled_wall_s: float, path: str):
                                          / busy_ms if busy_ms else 0.0)})
 
 
+# ------------------------------------------------------------------- ncu
+NCU_KERNELS = "flash_attention_bf16_kernel|ssd_scan_kernel"
+
+
+def ncu_target(llama, ssm) -> None:
+    """One launch of each kernel ``phase_ncu`` profiles, at its path's
+    shape (``--ncu-target``; run under ``ncu`` only)."""
+    import torch
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.ssd_scan import ops as SO
+    B.build(("flash_attention", "ssd_scan"))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():
+        b, s, h, k, d = llama
+        q = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+        kv = torch.randn((b, s, k, d), generator=gen, device="cuda").bfloat16()
+        FO.flash_attention(q, kv, kv, causal=True)
+        b, s, nh, hd, st = ssm
+        x = torch.randn((b, s, nh, hd), generator=gen, device="cuda")
+        dt = torch.full((b, s, nh), 0.1, device="cuda")
+        A = -torch.linspace(1.0, 16.0, nh, device="cuda")
+        Bm = torch.randn((b, s, st), generator=gen, device="cuda")
+        SO.ssd_scan(x, dt, A, Bm, Bm.flip(1).contiguous())
+    torch.cuda.synchronize()
+
+
+def phase_ncu():
+    """``ncu --set full`` on one launch of each redesigned kernel at its
+    path's shape, the report in the git-ignored results/, where the card's
+    machine has ``ncu`` and lets it read the counters; otherwise the
+    reason. Never fails the smoke: a profiler is not the program."""
+    found = shutil.which("ncu")
+    if found is None and Path("/usr/local/cuda/bin/ncu").exists():
+        found = "/usr/local/cuda/bin/ncu"
+    if found is None:
+        emit({"phase": "ncu", "status": "ncu not found"})
+        return
+    out = ROOT / "results" / "chip_smoke_ncu"
+    out.parent.mkdir(exist_ok=True)
+    cmd = [found, "--set", "full", "-k", f"regex:{NCU_KERNELS}", "-c", "2",
+           "-f", "-o", str(out), sys.executable, str(ROOT / "chip_smoke.py"),
+           "--ncu-target"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)          # ncu and the target it started
+        log, _ = proc.communicate()
+        log += "\n(timed out after 300 s)"
+    report = out.with_suffix(".ncu-rep")
+    if proc.returncode != 0 or not report.exists():
+        emit({"phase": "ncu", "status": f"ncu exited {proc.returncode}",
+              "tail": log.strip().splitlines()[-4:]})
+        return
+    text = subprocess.run([found, "--import", str(report), "--page",
+                           "details"], capture_output=True, text=True,
+                          timeout=120).stdout
+    (ROOT / "results" / "chip_smoke_ncu.txt").write_text(text)
+    keys = ("Compute (SM) Throughput", "Memory Throughput",
+            "Achieved Occupancy", "Bank Conflicts", "Warp Cycles Per Issued",
+            "Registers Per Thread")
+    emit({"phase": "ncu", "status": "ok", "report": str(report),
+          "headline": [ln.strip() for ln in text.splitlines()
+                       if any(k in ln for k in keys)][:40]})
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
@@ -1010,9 +1149,17 @@ def main() -> None:
         import torch  # noqa: F401
     except ImportError:
         die("torch is not installed")
+    if "--ncu-target" in sys.argv[1:]:
+        from repro_torch.configs.base import get_config
+        lm, ssm = get_config(SERVE_ARCH), get_config(SSM_ARCH)
+        ncu_target((SERVE_BATCH, SERVE_PROMPT, lm.n_heads, lm.n_kv_heads,
+                    lm.resolved_head_dim),
+                   (SERVE_BATCH, SERVE_PROMPT, ssm.ssm_n_heads,
+                    ssm.ssm_head_dim, ssm.ssm_state))
+        return
     phase_environment()
     import torch
-    phase_build()
+    logs = phase_build()
     from repro_torch.configs.base import get_config
     from repro_torch.core.allocation import allocate_widths
     from repro_torch.federated.simulator import make_fleet
@@ -1030,12 +1177,14 @@ def main() -> None:
             phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff),
             phase_tier_sum((cfg.n_layers - d_mix, cfg.d_model, cfg.d_ff)),
             phase_sumsq(cfg, d_max),
-            phase_flash((SERVE_BATCH, SERVE_PROMPT, lm.n_heads,
-                         lm.n_kv_heads, lm.resolved_head_dim)),
+            phase_flash(*((SERVE_BATCH, SERVE_PROMPT, c.n_heads,
+                           c.n_kv_heads, c.resolved_head_dim)
+                          for c in (lm, hybrid)), logs["flash_attention"]),
             phase_ssd_scan(*((SERVE_BATCH, SERVE_PROMPT, c.ssm_n_heads,
                               c.ssm_head_dim, c.ssm_state)
-                             for c in (ssm, hybrid)))]
+                             for c in (ssm, hybrid)), logs["ssd_scan"])]
     torch.cuda.empty_cache()
+    phase_ncu()
     launches = {}
     main_launches, eng = phase_path("main_path", ("fuse", "aggregate"))
     launches["main_path"] = main_launches

@@ -19,6 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params, torch_dtype
 from repro_torch.tree import tree_flatten_with_path, tree_map
 
@@ -62,13 +63,16 @@ def _check_like(name: str, ref, new) -> None:
                          f"shape mismatches {shapes})")
 
 
-def to_model_params(cfg, params: Dict[str, Any], device="cpu",
+def to_model_params(cfg, params: Dict[str, Any], device=None,
                     dtype: torch.dtype = None) -> Dict[str, Any]:
     """A reference model-params tree as numpy arrays -> the port's model
-    params on ``device``, in ``dtype`` (default: the config's). The tree
+    params on ``device`` (None: the card, see
+    ``repro_torch.device.resolve_device``), in ``dtype`` (default: the
+    config's). The tree
     must have exactly the keys and shapes of the port's ``init_params``
     for ``cfg``; every leaf is copied. The counterpart of
     ``install_weights`` for a bare model, not an ``Engine``."""
+    device = resolve_device(device)
     like = init_params(cfg, None, device="meta")
     _check_like("params", like, params)
     dtype = dtype or torch_dtype(cfg)

@@ -1,7 +1,8 @@
 """Where the port's tensors go when a caller names no device: the card.
 
 Every public constructor of the port (``Engine``, ``models.model.
-init_params`` and ``init_local_head``, ``models.decode.init_cache``)
+init_params`` and ``init_local_head``, ``models.decode.init_cache``,
+``federated.state.init_train_state``, ``bridge.to_model_params``)
 resolves ``device=None`` here, so none of them builds on the CPU
 without being told to.
 """

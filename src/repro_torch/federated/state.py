@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.federated.simulator import Fleet
 from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves, tree_map
@@ -53,11 +54,14 @@ class TrainState:
 
 
 def init_train_state(cfg: ModelConfig, n_clients: int, *, seed: int = 0,
-                     fleet: Fleet = None, device="cpu") -> TrainState:
-    """Fresh state: global params from a ``torch.Generator`` seeded with
-    ``seed``, the per-client heads phi_i from one seeded with ``seed + 1``
-    (stacked along the client axis), the batch stream
-    ``np.random.default_rng(seed)`` — the reference's RNG-stream offsets."""
+                     fleet: Fleet = None, device=None) -> TrainState:
+    """Fresh state on ``device`` (None: the card, see
+    ``repro_torch.device.resolve_device``): global params from a
+    ``torch.Generator`` seeded with ``seed``, the per-client heads phi_i
+    from one seeded with ``seed + 1`` (stacked along the client axis), the
+    batch stream ``np.random.default_rng(seed)`` — the reference's
+    RNG-stream offsets."""
+    device = resolve_device(device)
     params = M.init_params(cfg, torch.Generator().manual_seed(seed), device)
     hgen = torch.Generator().manual_seed(seed + 1)
     heads = [M.init_local_head(cfg, hgen, device) for _ in range(n_clients)]

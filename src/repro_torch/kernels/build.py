@@ -3,8 +3,9 @@
 Each ``src/repro_torch/csrc/<name>.cu`` compiles on first use into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), under ``build/repro_torch/`` at the root of the checkout.
-The library's file name carries a hash of its source and flags, so an
-edited source never loads a stale build. ``build()`` starts one ``nvcc``
+The library's file name carries a hash of its source, of every shared
+header ``csrc/*.cuh`` and of the flags, so an edited source or header
+never loads a stale build. ``build()`` starts one ``nvcc``
 per source, all at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -44,10 +45,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES, *,

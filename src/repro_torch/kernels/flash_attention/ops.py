@@ -64,15 +64,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 q, k and v must be "
-                         "16-byte aligned (the kernel moves 16-byte vectors)")
+                         "16-byte aligned (the kernel reads them by TMA)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention: the kernel has no backward (nor has the "
             "reference's); call it under torch.no_grad(), or run the plain "
             "attention with use_pallas=False")
-    if window < 0 or Skv == 0 or Bt > 65535 or H > 65535:
+    if window < 0 or Skv == 0 or Bt > 65535 or H > 65535 or \
+            Sq > 65535 * 64:
         raise ValueError(f"flash_attention: window {window} must be >= 0, "
-                         f"Skv {Skv} >= 1, B {Bt} and H {H} <= 65535")
+                         f"Skv {Skv} >= 1, B {Bt} and H {H} <= 65535, Sq "
+                         f"{Sq} <= {65535 * 64}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -4,7 +4,8 @@
 ``ssd_scan`` takes the plain version (``ref.ssd_ref``, at the kernel's
 own chunk of ``KERNEL_CHUNK`` rows) for tensors that lie on the CPU, and
 only then; for CUDA tensors it launches the kernel or raises.
-``ssd_scan.launches`` counts kernel launches. The reference kernel has no
+``ssd_scan.launches`` counts wrapper calls that launched the kernel (its
+pre-pass and the scan, one launch). The reference kernel has no
 gradient (``jax.grad`` through it fails inside Pallas), so neither has
 this one: the wrapper raises for an input that requires grad while grad
 mode is on, on every device, rather than return a result that would
@@ -19,7 +20,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import ref as R
 
-KERNEL_CHUNK = 32     # the kernel's rows per chunk (csrc/ssd_scan.cu)
+KERNEL_CHUNK = 16     # the kernel's rows per chunk (csrc/ssd_scan.cu)
 SIZES = ((8, 4), (32, 8), (32, 16), (32, 128), (64, 16), (64, 32),
          (64, 128))   # the (head_dim, state) pairs the kernel is built for
 
@@ -27,7 +28,7 @@ SIZES = ((8, 4), (32, 8), (32, 16), (32, 128), (64, 16), (64, 32),
 def _kernel():
     fn = build.load("ssd_scan").repro_ssd_scan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -72,16 +73,24 @@ def ssd_scan(x, dt, A, B, C, D=None):
         raise ValueError("ssd_scan: every input must be on one device")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("ssd_scan: every input must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, C)):
+        raise ValueError("ssd_scan: x and C must be 16-byte aligned (the "
+                         "kernel copies 16-byte vectors)")
     if Bt > 65535:
         raise ValueError(f"ssd_scan: batch {Bt} > 65535")
     y = torch.empty_like(x)
     h = torch.empty((Bt, nh, hd, st), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, h.zero_()
+    # per (batch, chunk), written by the kernel's pre-pass: C·Bᵀ, and Bᵀ
+    # split for the tensor cores (csrc/ssd_scan.cu)
+    record = KERNEL_CHUNK * KERNEL_CHUNK + 2 * KERNEL_CHUNK * max(st, 8)
+    cb = torch.empty((Bt, -(-S // KERNEL_CHUNK), record),
+                     dtype=torch.float32, device=x.device)
     rc = _kernel()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                    B.data_ptr(), C.data_ptr(),
-                   None if D is None else D.data_ptr(), y.data_ptr(),
-                   h.data_ptr(), Bt, S, nh, hd, st,
+                   None if D is None else D.data_ptr(), cb.data_ptr(),
+                   y.data_ptr(), h.data_ptr(), Bt, S, nh, hd, st,
                    torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "ssd_scan")
     ssd_scan.launches += 1

@@ -80,7 +80,7 @@ def test_install_weights_into_state_and_refuses_mismatch(jax_params):
     jcfg = JB.get_reduced("vit16_cifar").replace(**SMALL)
     tcfg = TB.get_reduced("vit16_cifar").replace(**SMALL)
     js = init_train_state(jcfg, 3, seed=0)
-    ts = t_init_train_state(tcfg, 3, seed=0)
+    ts = t_init_train_state(tcfg, 3, seed=0, device="cpu")
     P = jax.tree.map(np.asarray, js.params)
     H = jax.tree.map(np.asarray, js.local_heads)
     bridge.install_weights(ts, P, H)

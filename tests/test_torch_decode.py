@@ -55,7 +55,7 @@ def _params(arch, seed=0, **cfg_kw):
         0, 0.05, x.shape).astype(np.float32), jp)
     tcfg = TB.get_reduced(arch).replace(**cfg_kw)
     return jcfg, tcfg, jax.tree.map(jnp.asarray, np_p), \
-        bridge.to_model_params(tcfg, np_p)
+        bridge.to_model_params(tcfg, np_p, device="cpu")
 
 
 def _tokens(S, seed=4, vocab=512):

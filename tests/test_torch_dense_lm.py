@@ -101,7 +101,7 @@ def test_prefill_matches_reference(reference, monkeypatch, arch, route):
     cfg = TB.get_reduced(arch).replace(use_pallas=route == "flash")
     if route == "blockwise":
         monkeypatch.setattr(TL, "ATTN_BLOCKWISE_THRESHOLD", S)
-    params = bridge.to_model_params(cfg, np_p)
+    params = bridge.to_model_params(cfg, np_p, device="cpu")
     t_toks = next(t_lm(512, S, B, 1, seed=3))["tokens"]
     np.testing.assert_array_equal(t_toks, toks)
     with torch.no_grad():
@@ -131,7 +131,7 @@ def test_use_pallas_routes_through_the_flash_wrapper(reference,
     np_p, toks, _ = reference["llama3_2_3b"]
     for use_pallas in (True, False):
         cfg = TB.get_reduced("llama3_2_3b").replace(use_pallas=use_pallas)
-        params = bridge.to_model_params(cfg, np_p)
+        params = bridge.to_model_params(cfg, np_p, device="cpu")
         with torch.no_grad():
             TD.prefill(cfg, params, {"tokens": torch.as_tensor(toks)})
     assert calls == [((B, S, cfg.n_heads, cfg.resolved_head_dim), True,
@@ -238,12 +238,13 @@ def test_bridge_refuses_a_tree_that_does_not_match():
     np_p = perturbed_params("llama3_2_3b")
     cfg = TB.get_reduced("qwen2_5_3b")          # qkv biases: more leaves
     with pytest.raises(ValueError, match="missing"):
-        bridge.to_model_params(cfg, np_p)
+        bridge.to_model_params(cfg, np_p, device="cpu")
     cfg = TB.get_reduced("llama3_2_3b").replace(d_ff=128)
     with pytest.raises(ValueError, match="shape mismatches"):
-        bridge.to_model_params(cfg, np_p)
+        bridge.to_model_params(cfg, np_p, device="cpu")
     cfg = TB.get_reduced("llama3_2_3b")
-    params = bridge.to_model_params(cfg, np_p, dtype=torch.bfloat16)
+    params = bridge.to_model_params(cfg, np_p, device="cpu",
+                                    dtype=torch.bfloat16)
     assert params["embed"].dtype == torch.bfloat16
     params["embed"].zero_()                     # a copy, not a view
     assert np_p["embed"].any()

@@ -1,5 +1,6 @@
 """The port's public constructors run on the card unless told otherwise:
-``init_params``, ``init_local_head`` and ``init_cache`` resolve
+``init_params``, ``init_local_head``, ``init_cache``,
+``init_train_state`` and ``bridge.to_model_params`` resolve
 ``device=None`` to CUDA and, without a card, raise and ask for
 ``device="cpu"``; asked for the CPU they build there. (``Engine`` is
 held to the same rule by ``tests/test_torch_engine.py``.)"""
@@ -9,9 +10,11 @@ torch = pytest.importorskip("torch")
 
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 
+from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import base as TB  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.federated import engine as TE  # noqa: E402
+from repro_torch.federated.state import init_train_state  # noqa: E402
 from repro_torch.models import decode as TD  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -20,17 +23,24 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 def _constructors():
     vit = TB.get_reduced("vit16_cifar")
     gen = torch.Generator().manual_seed(0)
+    llama = TB.get_reduced("llama3_2_3b")
+    np_params = bridge.to_numpy(TM.init_params(llama, gen, device="cpu"))
     return {
         "init_params": lambda **kw: TM.init_params(
             TB.get_reduced("mamba2_2_7b"), gen, **kw),
         "init_local_head": lambda **kw: TM.init_local_head(vit, gen, **kw),
         "init_cache": lambda **kw: TD.init_cache(
             TB.get_reduced("hymba_1_5b"), 2, 8, **kw),
+        "init_train_state": lambda **kw: (lambda st: [
+            st.params, st.local_heads])(init_train_state(vit, 3, **kw)),
+        "to_model_params": lambda **kw: bridge.to_model_params(
+            llama, np_params, **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_local_head",
-                                  "init_cache"])
+                                  "init_cache", "init_train_state",
+                                  "to_model_params"])
 def test_constructors_default_to_the_card(monkeypatch, name):
     make = _constructors()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -12,13 +12,16 @@ clients in order, the plain version's einsum in another order); bf16 2e-2.
 ``sumsq`` within 1e-5 relative (another summation order) and the same
 bits on two calls. ``flash_attention`` within the reference kernel's own
 test tolerances, 2e-5 (fp32) and 3e-2 (bf16), at ``chip_smoke.py``'s
-shapes: the serve path's, a window, MQA, every head dim, a ragged S and
-non-causal cases. ``ssd_scan`` within 1e-4 of the largest magnitude of y
-and of h (the reference kernel's own bar; its chunk differs from the
-plain version's, so the sums run in other orders) at ``chip_smoke.py``'s
-shapes: the Mamba2 and Hymba serve shapes, ``test_kernels.py``'s, every
-(head_dim, state) pair, ragged S, no D, and dt near 1 with A = −16, where
-an unmasked upper half would overflow.
+shapes: the serve path's and Hymba's (H and K not powers of two), a
+window (also one across tile edges), MQA, every head dim, S one row past
+a tile, Sq = 1, Sq and Skv unequal, and non-causal cases. ``ssd_scan``
+within 1e-4 of the largest magnitude of y and of h (the reference
+kernel's own bar; its chunk differs from the plain version's, so the
+sums run in other orders) at ``chip_smoke.py``'s shapes: the Mamba2 and
+Hymba serve shapes, ``test_kernels.py``'s, every (head_dim, state) pair,
+S not a multiple of the kernel's chunk, S = 1, an odd number of heads, no
+D, and dt near 1 with A = −16, where an unmasked upper half would
+overflow.
 """
 import pytest
 
@@ -185,6 +188,20 @@ FLASH_CASES = [
     (2, 1000, 4, 2, 128, True, 0),       # ragged: not a multiple of 64
     (1, 300, 4, 4, 64, False, 0),        # non-causal, ragged
     (1, 300, 4, 4, 64, False, 100),      # non-causal window
+    (4, 2048, 25, 5, 64, True, 0),       # Hymba's: H and K not powers of 2
+    (2, 129, 4, 2, 128, True, 0),        # one row past a q and a kv tile
+    (1, 300, 4, 4, 64, True, 100),       # a window across tile edges
+    (2, 1, 4, 2, 64, True, 0),           # Sq = Skv = 1
+]
+
+# (B, Sq, Skv, H, K, hd, causal, window): queries and keys of other
+# lengths, neither a multiple of a tile
+FLASH_RAGGED_CASES = [
+    (2, 1000, 129, 4, 2, 128, True, 0),
+    (2, 129, 1000, 4, 2, 128, True, 0),
+    (2, 1000, 129, 8, 2, 64, False, 0),
+    (2, 1, 300, 4, 2, 256, False, 0),    # Sq = 1
+    (1, 1, 300, 4, 4, 32, True, 0),
 ]
 
 
@@ -203,6 +220,22 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
     torch.cuda.synchronize()
     assert O.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
+    want = R.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", FLASH_RAGGED_CASES, ids=str)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_matches_plain_sq_ne_skv(cuda, case, dtype,
+                                                        tol):
+    from repro_torch.kernels.flash_attention import ops as O, ref as R
+    B, Sq, Skv, H, K, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, K, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, K, hd), generator=g, device=cuda).to(dtype)
+    got = O.flash_attention(q, k, v, causal=causal, window=window)
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -255,6 +288,9 @@ SSD_CASES = [
     (4, 2000, 80, 64, 128, 250),         # ragged: 2000 = 62·32 + 16
     (2, 77, 4, 32, 16, 77),              # ragged, one plain chunk
     (3, 1, 2, 64, 128, 1),               # one row
+    (2, 999, 6, 64, 128, 333),           # S not a multiple of the chunk
+    (1, 1, 50, 64, 16, 1),               # S = 1 at Hymba's heads
+    (2, 256, 7, 32, 16, 128),            # an odd number of heads
 ]
 
 

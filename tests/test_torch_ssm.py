@@ -183,7 +183,8 @@ def step_by_step():
     for arch in ARCHS:
         np_p = _perturbed(arch)
         toks = _tokens(TOTAL)
-        tp = bridge.to_model_params(TB.get_reduced(arch), np_p)
+        tp = bridge.to_model_params(TB.get_reduced(arch), np_p,
+                                     device="cpu")
         out[arch] = (_run_jax(arch, np_p, toks),
                      _run_port(TB.get_reduced(arch), tp, toks))
     return out
@@ -245,7 +246,7 @@ def test_departure_e_use_pallas_routes_the_scan_through_the_wrapper(
     out = {}
     for use_pallas in (False, True):
         tcfg = TB.get_reduced(arch).replace(use_pallas=use_pallas)
-        tp = bridge.to_model_params(tcfg, np_p)
+        tp = bridge.to_model_params(tcfg, np_p, device="cpu")
         with torch.no_grad():
             out[use_pallas], _ = TD.prefill(
                 tcfg, tp, {"tokens": torch.as_tensor(toks)})
@@ -258,7 +259,7 @@ def test_departure_e_use_pallas_routes_the_scan_through_the_wrapper(
 @pytest.mark.parametrize("arch", ARCHS)
 def test_departure_c_decode_writes_the_ssm_state_in_place(arch):
     tcfg = TB.get_reduced(arch)
-    tp = bridge.to_model_params(tcfg, _perturbed(arch))
+    tp = bridge.to_model_params(tcfg, _perturbed(arch), device="cpu")
     toks = _tokens(10)
     with torch.no_grad():
         _, cache = TD.prefill(tcfg, tp, {"tokens": torch.as_tensor(
