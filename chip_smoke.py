@@ -39,7 +39,24 @@ Phases, one JSON line each (plus the card's name and power limit as
      Eq. 4) over the depth-10 client's gradient shapes: ``sumsq`` and
      ``fuse`` must launch, and the result must match
      ``clip_by_global_l2`` + ``fuse_gradients`` (rtol 1e-4, atol 1e-6);
-  7. serve path — Llama-3.2-3B at full width in bf16 (28 layers, random
+  7. baseline path — the main path's fleet and settings trained by the
+     SplitFed baselines ``sfl`` and ``dfl``: with the kernels on,
+     ``aggregate`` must launch and no other kernel (``fuse`` least of
+     all); kernels off must launch nothing and agree within 1e-4; both
+     heads evaluate, peak memory, a profiled round; their launches get a
+     line of their own;
+  8. fedavg path — ``fedavg``, ``fedavgm``, ``fedadam`` and ``fedyogi``
+     on the same fleet for two rounds each with the kernels on: finite
+     losses, no kernel launch (none lies on this path), the global head
+     evaluated, the server slot named; one profiled round of ``fedavg``
+     and of ``fedadam``;
+  9. resume — ``ssfl`` with ``adamw`` (lr 0.01, kernels on), ``sfl`` with
+     ``adamw`` and ``fedadam``: 1 round, ``save``, a fresh engine,
+     ``restore``, 1 more round must equal 2 uninterrupted rounds bit for
+     bit (params, local heads, ``opt_state``); prints the checkpoint's
+     size and its save and restore times (a temporary directory, removed
+     afterwards);
+ 10. serve path — Llama-3.2-3B at full width in bf16 (28 layers, random
      weights drawn on the card from a seed), the ViT engines freed first:
      4 prompts of 2,048 tokens from ``synthetic_lm_batches`` prefilled
      through ``launch.steps.make_prefill_step`` (``use_pallas=True``:
@@ -51,17 +68,17 @@ Phases, one JSON line each (plus the card's name and power limit as
      ``SERVE_LOGIT_TOL`` of the largest logit). Prints prefill and decode
      times and rates, peak memory, the weights' init time, one profiled
      prefill and one profiled decode step;
-  8. ssm serve path — the same contract for Mamba2-2.7B at full width and
+ 11. ssm serve path — the same contract for Mamba2-2.7B at full width and
      depth in bf16 (64 layers, d_model 2560, 80 SSM heads of 64, state
      128), the Llama weights freed first: ``ssd_scan`` must launch 64
      times a prefill and ``flash_attention`` never. Its bf16 agreements
      are held to ``BF16_LOGIT_TOL["ssm"]``, and the same three
      agreements in fp32 at full size to ``FP32_LOGIT_TOL``;
-  9. hybrid serve path — the same for Hymba-1.5B (32 layers, d_model
+ 12. hybrid serve path — the same for Hymba-1.5B (32 layers, d_model
      1600, 25 query and 5 KV heads of 64, 50 SSM heads of 64, state 16):
      ``flash_attention`` and ``ssd_scan`` must each launch 32 times a
      prefill; its launches get a line of their own;
- 10. the ``kernels`` summary line; each kernel's ``launches`` come from
+ 13. the ``kernels`` summary line; each kernel's ``launches`` come from
      the path named beside it (counts set to 0 just before that path).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -663,10 +680,17 @@ def phase_ssd_scan(ssm_shape, hybrid_shape, build_log):
 
 
 # --------------------------------------------------------------- phase 4
+# the training paths' fleet: 8 clients, seed 0, SGD lr 0.05, 2 local
+# steps, batch 32, availability 0.9 (``strategy`` and any of these may be
+# overridden)
+TRAIN_ARGS = dict(strategy="ssfl", seed=0, lr=0.05, local_steps=2,
+                  batch_size=32, availability=0.9)
+
+
 def _engine(cfg, **kw):
     from repro_torch.federated import Engine
-    return Engine(cfg, 8, "ssfl", seed=0, lr=0.05, local_steps=2,
-                  batch_size=32, availability=0.9, device="cuda", **kw)
+    args = dict(TRAIN_ARGS, **kw)
+    return Engine(cfg, 8, args.pop("strategy"), device="cuda", **args)
 
 
 def _run(cfg, label, **kw):
@@ -706,11 +730,13 @@ def _counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def phase_path(name, must_launch, **engine_kw):
+def phase_path(name, must_launch, forbidden=(), **engine_kw):
     """Train the fleet two rounds with the kernels on, every launch count
-    set to 0 just before and read just after; then the same run with the
-    kernels off, which must launch nothing and agree within 1e-4; then a
-    profiled round. Returns (launches, the kernel-on engine)."""
+    set to 0 just before and read just after (each kernel of
+    ``must_launch`` must have launched, none of ``forbidden``); then the
+    same run with the kernels off, which must launch nothing and agree
+    within 1e-4; then a profiled round. Returns (launches, the kernel-on
+    engine)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core.supernet import split_params
@@ -748,6 +774,9 @@ def phase_path(name, must_launch, **engine_kw):
     if missing:
         die(f"{name}: kernels of the path never launched: {missing} "
             f"({launches})")
+    stray = [k for k in forbidden if launches[k] > 0]
+    if stray:
+        die(f"{name}: kernels off the path launched: {stray} ({launches})")
 
     # the same run through the plain versions must agree
     _zero_counts()
@@ -827,6 +856,107 @@ def phase_clip_path(cfg, params, d):
           "sumsq_tree_ms": sumsq_tree_ms,
           "sumsq_tree_bound_ms": sumsq_tree_bound_ms})
     return launches
+
+
+# ------------------------------------------------------ baselines, resume
+FEDAVG_FAMILY = ("fedavg", "fedavgm", "fedadam", "fedyogi")
+# (label, engine settings): the main path's fleet, kernels on
+RESUME_CASES = (("ssfl-adamw", dict(optimizer="adamw", lr=0.01)),
+                ("sfl-adamw", dict(strategy="sfl", optimizer="adamw",
+                                   lr=0.01)),
+                ("fedadam", dict(strategy="fedadam")))
+
+
+def phase_fedavg_path():
+    """The FedAvg family at full width: two rounds each with the kernels
+    on (no port kernel lies on this path, so none may launch), finite
+    losses, the global head evaluated; one profiled round of ``fedavg``
+    and of ``fedadam``."""
+    import torch
+    from repro_torch.configs.base import get_config
+    cfg = get_config("vit16_cifar").replace(use_pallas=True)
+    for name in FEDAVG_FAMILY:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        eng, recs = _run(cfg, f"fedavg_path_{name}", strategy=name)
+        launches = _counts()
+        if any(launches.values()):
+            die(f"fedavg_path {name}: a port kernel launched: {launches}")
+        slot = eng.state.opt_state.get("server")
+        emit({"phase": f"fedavg_path_{name}", "config": cfg.name,
+              "clients": eng.state.n_clients, "rounds": ROUNDS,
+              "launches": launches,
+              "server_slot": sorted(slot) if slot is not None else None,
+              "accuracy_global": eng.evaluate(head="global"),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+        if name in ("fedavg", "fedadam"):
+            _profile(eng.run_round, recs[-1]["wall_s"],
+                     f"fedavg_path_{name}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def _first_difference(a, b):
+    """The path of the first leaf where two tensor trees differ in any
+    bit (or in shape or dtype), else None."""
+    import torch
+    from repro_torch.tree import tree_flatten_with_path
+    fa, fb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return "the trees' keys"
+    for (path, x), (_, y) in zip(fa, fb):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            return path
+    return None
+
+
+def phase_resume():
+    """For each of ``RESUME_CASES``: 1 round, ``save``, a fresh engine,
+    ``restore``, 1 more round must equal 2 uninterrupted rounds bit for
+    bit (params, local heads, opt_state). The checkpoint goes to a
+    temporary directory that is removed afterwards."""
+    import tempfile
+    import torch
+    from repro_torch.configs.base import get_config
+    cfg = get_config("vit16_cifar").replace(use_pallas=True)
+    for label, kw in RESUME_CASES:
+        a = _engine(cfg, **kw)
+        for _ in range(ROUNDS):
+            a.run_round()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            path = os.path.join(tmp, "ck")
+            b = _engine(cfg, **kw)
+            b.run_round()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.save(path)
+            save_s = time.perf_counter() - t0
+            del b
+            size = sum(os.path.getsize(path + ext)
+                       for ext in (".npz", ".json"))
+            c = _engine(cfg, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c.restore(path)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        rec = c.run_round()
+        diff = {part: _first_difference(getattr(a.state, part),
+                                        getattr(c.state, part))
+                for part in ("params", "local_heads", "opt_state")}
+        emit({"phase": "resume", "case": label, "round": rec["round"],
+              "loss_resumed": rec["loss"],
+              "loss_uninterrupted": a.history[-1]["loss"],
+              "checkpoint_bytes": size, "save_s": save_s,
+              "restore_s": restore_s,
+              "first_difference": {k: v and "/".join(map(str, v))
+                                   for k, v in diff.items()}})
+        if any(v is not None for v in diff.values()) \
+                or rec["loss"] != a.history[-1]["loss"]:
+            die(f"resume {label}: the resumed run is not bit-identical to "
+                f"the uninterrupted one ({diff})")
+        del a, c
+        torch.cuda.empty_cache()
 
 
 def _rel_logit_diff(got, want) -> float:
@@ -1194,6 +1324,21 @@ def main() -> None:
     launches["width_path"] = phase_path(
         "width_path", ("fuse", "aggregate", "tier_sum"),
         width_tiers=LADDER, cross_tier="fused")[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the paper's baselines: SplitFed aggregates through the aggregate
+    # kernel, and nothing else of the port
+    off_baseline = ("fuse", "tier_sum", "sumsq", "flash_attention",
+                    "ssd_scan")
+    baseline = {}
+    for strategy in ("sfl", "dfl"):
+        baseline[strategy] = phase_path(
+            f"baseline_path_{strategy}", ("aggregate",), off_baseline,
+            strategy=strategy)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_fedavg_path()
+    phase_resume()
     gc.collect()                      # the ViT engines go before the LM
     torch.cuda.empty_cache()
     launches["serve_path"] = phase_serve_path(
@@ -1218,8 +1363,10 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # the hybrid path runs both serving kernels; its launches stand here
+    # the hybrid path runs both serving kernels, and the baselines run
+    # aggregate; their launches stand here
     emit({"hybrid_serve_path_launches": launches["hybrid_serve_path"]})
+    emit({"baseline_path_launches": baseline})
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     # hand the card's memory back before the result, so that the exit
     # after it has little left to tear down

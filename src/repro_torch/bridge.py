@@ -36,8 +36,10 @@ def _leaf_to_torch(x, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
-def to_torch(tree, device="cpu"):
-    """A numpy tree -> the same tree of tensors on ``device``."""
+def to_torch(tree, device=None):
+    """A numpy tree -> the same tree of tensors on ``device`` (None: the
+    card, see ``repro_torch.device.resolve_device``)."""
+    device = resolve_device(device)
     return tree_map(lambda x: _leaf_to_torch(x, device), tree)
 
 

@@ -7,7 +7,7 @@ values. ``get_config``/``get_reduced`` resolve modules inside
 dense causal LMs (``llama3_2_3b``, ``qwen2_5_3b``, ``gemma_2b``,
 ``internlm2_1_8b``), the ssm ``mamba2_2_7b`` and the hybrid
 ``hymba_1_5b``, each with its ``reduced()`` form; the other families
-come with ROADMAP queue 1, item 6.
+come with ROADMAP queue 1, "The rest of the model zoo".
 """
 from __future__ import annotations
 

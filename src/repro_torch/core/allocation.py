@@ -9,7 +9,7 @@ once at initialization (paper §II-A). The arithmetic is float32, as the
 reference's, so a floor lands on the same side of an integer.
 ``allocate_widths`` snaps memory budgets onto a supernet width ladder.
 The HASFL co-tuning (``co_tune``) comes with a later slice of the port
-(ROADMAP queue 1, item 5).
+(ROADMAP queue 1, "Scenario strategies").
 """
 from __future__ import annotations
 

@@ -5,9 +5,16 @@ fraction (Table III); ``AvailabilityModel`` draws it as i.i.d. Bernoulli
 per (client, round) from its own numpy stream, draw for draw as the
 reference does. The same protocol serves client participation. The
 timeout and Markov processes come with the scenario strategies (ROADMAP
-queue 1, item 5).
+queue 1, "Scenario strategies").
+
+``get_state``/``set_state`` carry a process's stream position as the
+reference's JSON-able payload (``{"rng": <bit-generator state>}``), so a
+checkpoint manifest written by either package restores the streams in
+the other (``Engine.save``/``restore``).
 """
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import numpy as np
 
@@ -20,6 +27,12 @@ class ArrivalProcess:
 
     def draw(self, n_clients: int) -> np.ndarray:
         raise NotImplementedError
+
+    def get_state(self) -> Dict[str, Any]:
+        return {"rng": self._rng.bit_generator.state}
+
+    def set_state(self, state: Dict[str, Any]) -> None:
+        self._rng.bit_generator.state = state["rng"]
 
 
 class AvailabilityModel(ArrivalProcess):

@@ -26,8 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aggregation as AGG
 from repro_torch.core import supernet as SN
 from repro_torch.models import model as M
-from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
-                              tree_unflatten)
+from repro_torch.tree import (grad_leaves, tree_flatten_with_path,
+                              tree_leaves, tree_map, tree_unflatten)
 
 
 class TPGFSplitOut(NamedTuple):
@@ -107,13 +107,6 @@ def fuse_gradients(g_client, g_server, w_client, *, use_pallas: bool = False):
         g_client, g_server)
 
 
-def _leaf_params(tree):
-    """Fresh autograd leaves with ``tree``'s values (and its paths)."""
-    flat = tree_flatten_with_path(tree)
-    leaves = [x.detach().requires_grad_(True) for _, x in flat]
-    return [p for p, _ in flat], leaves
-
-
 def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
                      local_p, batch, d: int, *,
                      server_available=None) -> TPGFSplitOut:
@@ -124,9 +117,9 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
     local head and the server suffix stay full width (the smashed data is
     full ``d_model``). ``g_client`` comes back aligned with the slice."""
     d_s = cfg.split_stack_len - d
-    c_paths, c_leaves = _leaf_params(client_p)
-    s_paths, s_leaves = _leaf_params(server_p)
-    l_paths, l_leaves = _leaf_params(local_p)
+    c_paths, c_leaves = grad_leaves(client_p)
+    s_paths, s_leaves = grad_leaves(server_p)
+    l_paths, l_leaves = grad_leaves(local_p)
 
     # ---- one client-prefix forward (Algorithm 2, line 13)
     z, aux_prefix = M.client_apply(wcfg, tree_unflatten(c_paths, c_leaves),

@@ -36,9 +36,14 @@ meet on the shared server branch: ``"fused"`` (the paper's path, ONE
 ``fuse_tiers`` update from one snapshot) or ``"chained"`` (each tier
 continues from the previous one's server branch, the comparator).
 
+``save`` persists the position of every stream (and the staleness and
+server-update counters, and the width tiers) in the checkpoint manifest;
+``restore`` rewinds them, so a resumed run is bit-identical to an
+uninterrupted one. The manifest is the reference's: a checkpoint written
+by either package restores in the other.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-queue item: ``mesh=`` (fleet sharding), ``sanitize=True``. Checkpoints
-(``save``/``restore``) come with a later slice (ROADMAP queue 1, item 4).
+queue item: ``mesh=`` (fleet sharding), ``sanitize=True``.
 """
 from __future__ import annotations
 
@@ -83,10 +88,12 @@ class Engine:
         self.cross_tier = cross_tier
         if mesh is not None:
             raise NotImplementedError(
-                "Engine(mesh=): fleet sharding is ROADMAP queue 1, item 8")
+                "Engine(mesh=): fleet sharding is ROADMAP queue 1, "
+                "\"Fleet sharding and multi-device\"")
         if sanitize:
             raise NotImplementedError(
-                "Engine(sanitize=True): ROADMAP queue 1, item 9")
+                "Engine(sanitize=True): the sanitizer mode is ROADMAP "
+                "queue 1, \"Tooling counterparts\"")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = (get_strategy(strategy)
@@ -121,6 +128,7 @@ class Engine:
             cfg, n_clients, seed=seed, fleet=fleet, device=self.device)
         self._staleness = np.zeros(n_clients, np.int64)
         self._server_updates = 0    # rounds in which any client had a server
+        self._server_opt_ok = None  # see strategies.base.valid_opt_state
         self.history: List[Dict] = []
 
     @classmethod
@@ -191,10 +199,15 @@ class Engine:
             * self.local_steps
         cost = {av: self.strategy.comm_cost(self, d, av, ids)
                 for av in (True, False)}
+
+        def pick(v, j):
+            a = np.asarray(v).reshape(-1)   # per-id array or a shared scalar
+            return int(a[j]) if a.size > 1 else int(a[0])
+
         for j, i in enumerate(ids):
             prof = self.state.fleet.profiles[i]
             pbytes, nmsg = cost[bool(ctx.avail[i])]
-            nbytes = int(pbytes[j])
+            nbytes, nmsg = pick(pbytes, j), pick(nmsg, j)
             t = cflops / dm.client_speed(prof.mem_gb) + dm.comm_time_s(
                 nbytes, prof.lat_ms, nmsg)
             stats.comm_bytes += nbytes
@@ -285,6 +298,47 @@ class Engine:
                 if target_accuracy and rec["accuracy"] >= target_accuracy:
                     return rec
         return self.history[-1]
+
+    # ------------------------------------------------------------ checkpoint
+    def save(self, path: str, *, meta: Dict = None) -> None:
+        """``TrainState.save`` plus the engine's own stream positions
+        (availability, sampling and participation RNGs, staleness and
+        server-update counters, width tiers), so :meth:`restore` resumes
+        bit-identically. Strategy state that lives in
+        ``TrainState.opt_state`` (the server moments) rides along. The
+        metrics ledger and history are not saved: a restored engine
+        accounts from zero."""
+        meta = dict(meta or {})
+        streams = {"avail": self.avail_model.get_state(),
+                   "sample": self._sample_rng.bit_generator.state,
+                   "staleness": self._staleness.tolist(),
+                   "server_updates": self._server_updates,
+                   "widths": np.asarray(self.state.fleet.widths,
+                                        np.float64).tolist()}
+        if self.participation is not None:
+            streams["participation"] = self.participation.get_state()
+        meta["engine_streams"] = streams
+        self.state.save(path, meta=meta)
+
+    def restore(self, path: str) -> "Engine":
+        """Inverse of :meth:`save`; the engine must have been built with
+        the same (cfg, n_clients, strategy, optimizer) shape."""
+        self.state.restore(path)
+        # the adopted opt_state is re-validated by its owners on next use
+        self._server_opt_ok = None
+        streams = self.state.last_restore_meta.get("engine_streams")
+        if streams:
+            self.avail_model.set_state(streams["avail"])
+            self._sample_rng.bit_generator.state = streams["sample"]
+            self._staleness = np.asarray(streams["staleness"], np.int64)
+            self._server_updates = int(streams.get("server_updates", 0))
+            if "widths" in streams:
+                self.state.fleet.widths = np.asarray(streams["widths"],
+                                                     np.float64)
+            if self.participation is not None \
+                    and "participation" in streams:
+                self.participation.set_state(streams["participation"])
+        return self
 
 
 class EngineBuilder:

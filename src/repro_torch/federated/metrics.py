@@ -15,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+from repro_torch.tree import tree_leaves
+
 MB = 1024 * 1024
 
 
@@ -85,6 +87,12 @@ class Accountant:
             "avg_power_w": round(self.avg_power_w, 1),
             "co2_g": round(self.co2_g(), 2),
         }
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor leaf of ``tree`` (the wire size of a model
+    download or upload)."""
+    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
 
 
 def dense_train_flops(n_params: int, n_tokens: int) -> float:

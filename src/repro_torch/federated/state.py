@@ -15,8 +15,18 @@
   fleet        — the heterogeneous device fleet (profiles, depths, cohorts)
   rng          — the numpy batch-sampling stream
 
-Checkpoints (``save``/``restore``) come with a later slice (ROADMAP
-queue 1, item 4).
+Checkpoint format (``save``/``restore`` through ``repro_torch.checkpoint``,
+the reference's format): one flat ``<path>.npz`` holding ``params/...``,
+stacked ``local_heads/...`` leaves (leading client axis) and
+``opt_state/...`` leaves, plus a ``<path>.json`` manifest with the round
+counter (``step``), per-leaf dtypes and shapes and, under
+``meta.batch_rng``, the batch stream's bit-generator state, so a restored
+run draws the batches the uninterrupted run would have. Checkpoints from
+before the stacked heads (``local_heads/<i>/...``, one subtree per
+client) are detected by their all-digit keys and stacked on read. Fleet
+profiles are rebuilt from the construction seed, not saved. Stateless
+optimizer slots (plain SGD's ``()``) flatten to nothing and are
+re-initialized after a restore.
 """
 from __future__ import annotations
 
@@ -26,13 +36,29 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.federated.simulator import Fleet
 from repro_torch.models import model as M
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                              tree_map, tree_structure)
 
 Params = Dict[str, Any]
+
+
+def _cast_like(name: str, ref, new):
+    """``new`` (numpy leaves) as tensors on ``ref``'s devices and in its
+    dtypes; the trees must match key for key and shape for shape."""
+    if tree_structure(ref) != tree_structure(new):
+        raise ValueError(f"checkpoint {name} do not match this state's tree")
+    bad = [p for (p, r), (_, n) in zip(tree_flatten_with_path(ref),
+                                       tree_flatten_with_path(new))
+           if tuple(r.shape) != tuple(np.shape(n))]
+    if bad:
+        raise ValueError(f"checkpoint {name}: shapes differ at {bad[:3]}")
+    return tree_map(lambda r, n: torch.tensor(np.asarray(n), dtype=r.dtype,
+                                              device=r.device), ref, new)
 
 
 @dataclasses.dataclass
@@ -51,6 +77,47 @@ class TrainState:
     def head_for(self, i: int) -> Params:
         """Client ``i``'s phi_i as an unstacked tree (views)."""
         return tree_map(lambda x: x[i], self.local_heads)
+
+    # ------------------------------------------------------------ checkpoint
+    def save(self, path: str, *, meta: Dict[str, Any] = None) -> None:
+        """Write ``<path>.npz`` + ``<path>.json`` (format in the module
+        docstring); ``meta`` entries join the manifest's meta block
+        (``Engine.save`` puts its stream states there)."""
+        meta = dict(meta or {})
+        if self.rng is not None:
+            meta["batch_rng"] = self.rng.bit_generator.state
+        save_checkpoint(path, {"params": self.params,
+                               "local_heads": self.local_heads,
+                               "opt_state": self.opt_state},
+                        step=self.round_idx, meta=meta)
+
+    def restore(self, path: str) -> "TrainState":
+        """Load ``path`` into this state, in place: params and heads are
+        cast onto the existing trees (their devices and dtypes), opt_state
+        is adopted whole on the params' device (strategies re-validate its
+        shape), and the batch stream resumes from the saved bit-generator
+        state. The manifest's meta block stays on
+        ``self.last_restore_meta``."""
+        tree, manifest = load_checkpoint(path)
+        self.last_restore_meta = manifest.get("meta", {})
+        self.params = _cast_like("params", self.params, tree["params"])
+        heads = tree["local_heads"]
+        if heads and all(k.isdigit() for k in heads):
+            # one subtree per client index: stack them
+            heads = tree_map(lambda *xs: np.stack(xs),
+                             *[heads[str(i)] for i in range(len(heads))])
+        self.local_heads = _cast_like("local_heads", self.local_heads,
+                                      heads)
+        device = tree_leaves(self.params)[0].device
+        self.opt_state = tree_map(
+            lambda x: torch.tensor(np.asarray(x), device=device),
+            tree.get("opt_state", {}))
+        self.round_idx = int(manifest["step"])
+        batch_rng = self.last_restore_meta.get("batch_rng")
+        if batch_rng is not None:
+            self.rng = np.random.default_rng()
+            self.rng.bit_generator.state = batch_rng
+        return self
 
 
 def init_train_state(cfg: ModelConfig, n_clients: int, *, seed: int = 0,

@@ -13,8 +13,10 @@ method-specific pieces:
   aggregate    — produce the next global params + the round's loss scalar
   comm_cost    — per-client bytes and message counts for the round
 
-The port registers ``ssfl`` only so far; the reference's other strategies
-raise ``NotImplementedError`` naming their ROADMAP queue item.
+The port registers ``ssfl``, the SplitFed baselines ``sfl``/``dfl``
+(``splitfed.py``) and the FedAvg family ``fedavg``/``fedavgm``/
+``fedadam``/``fedyogi`` (``fedavg.py``); the reference's scenario
+strategies raise ``NotImplementedError`` naming their ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -209,14 +211,39 @@ def split_param_counts(cfg, params, d: int, width: float = 1.0):
 # (the d=0 view: whole split stack + non-stack server leaves). A cohort of
 # depth d slices moment rows ``[d:]``, steps them, and writes them back.
 
+def state_like(state, shaped) -> bool:
+    """Same tree and the same leaf shapes (``shaped`` may live on the
+    ``meta`` device)."""
+    if tree_structure(state) != tree_structure(shaped):
+        return False
+    return all(tuple(a.shape) == tuple(b.shape)
+               for a, b in zip(tree_leaves(state), tree_leaves(shaped)))
+
+
+def valid_opt_state(engine, opt, template) -> Any:
+    """``engine.state.opt_state["server"]`` if it has the shape
+    ``opt.init(template)`` would give, else a fresh ``opt.init(template)``
+    (stored back). The check builds ``opt``'s state on the ``meta``
+    device, so it allocates nothing; it runs once per (engine, optimizer)
+    and again after every ``Engine.restore``, which resets
+    ``engine._server_opt_ok``."""
+    cur = engine.state.opt_state.get("server")
+    if cur is not None and getattr(engine, "_server_opt_ok", None) == id(opt):
+        return cur
+    want = opt.init(tree_map(
+        lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+        template))
+    if cur is None or not state_like(cur, want):
+        cur = engine.state.opt_state["server"] = opt.init(template)
+    engine._server_opt_ok = id(opt)
+    return cur
+
+
 def server_opt_state(engine, template) -> Any:
     """The persistent full-server-branch optimizer state, initialized on
-    first use."""
-    cur = engine.state.opt_state.get("server")
-    if cur is None:
-        cur = engine.state.opt_state["server"] = \
-            engine.optimizer.init(template)
-    return cur
+    first use (and re-initialized if it does not fit the engine's
+    optimizer, e.g. a checkpoint of another optimizer)."""
+    return valid_opt_state(engine, engine.optimizer, template)
 
 
 def slice_server_opt(state, template, sname: str, d: int):
@@ -258,16 +285,40 @@ def merge_server_opt(full, cohort, template, sname: str, d: int):
     return out
 
 
+def broadcast_server_opt(state, n: int):
+    """One copy of a server opt-state slice per client (SplitFed trains
+    per-client server copies; each starts the round from the shared
+    fed-averaged moments). The copies share tensors: the optimizers build
+    new tensors and never write a state in place."""
+    return [dict(state) if isinstance(state, dict) else state
+            for _ in range(n)]
+
+
+def mean_server_opt(states, template):
+    """Collapse per-client server states back to the shared one: each
+    moment entry is the fp32 mean over the clients, cast back to its
+    dtype (the moment-space analogue of SplitFed's FedAvg over server
+    copies); bookkeeping entries, equal in every copy, come from the
+    first."""
+    def mean(*xs):
+        return (torch.stack([x.float() for x in xs]).sum(0)
+                / float(len(xs))).to(xs[0].dtype)
+    first = states[0]
+    if not isinstance(first, dict):
+        return first
+    pdef = tree_structure(template)
+    return {k: (tree_map(mean, *[s[k] for s in states])
+                if tree_structure(v) == pdef else v)
+            for k, v in first.items()}
+
+
 # ----------------------------------------------------------------- registry
 
 _REGISTRY: Dict[str, Type[Strategy]] = {}
 
 # the reference's other strategies, and where the port's queue has them
-_NOT_YET = {name: "ROADMAP queue 1, item 3 (the paper's baselines)"
-            for name in ("sfl", "dfl", "fedavg", "fedavgm", "fedadam",
-                         "fedyogi")}
-_NOT_YET.update({name: "ROADMAP queue 1, item 5 (scenario strategies)"
-                 for name in ("unstable", "async_buffered", "hasfl")})
+_NOT_YET = {name: 'ROADMAP queue 1, "Scenario strategies"'
+            for name in ("unstable", "async_buffered", "hasfl")}
 
 
 def register_strategy(name: str):

@@ -2,7 +2,8 @@
 teacher-forced cache-building forward and the single-token decode.
 
 The JAX package's ``make_train_step`` (the production TPGF train step)
-comes with the LM training slice (ROADMAP queue 1, item 1). Both steps
+comes with the LM training slice (ROADMAP queue 1, "The LM training
+slice"). Both steps
 here run without autograd: serving needs no graph, and the flash kernel
 has no backward.
 """

@@ -17,9 +17,10 @@ against its runtime form).
 The LM families serve (``models/decode.py``): ``init_params``,
 ``embed_inputs`` and ``run_stack(emit=True)``. Their SuperSFL training
 surfaces (prefix/suffix, losses, the TPGF split) come with the LM training
-slice (ROADMAP queue 1, item 1) and raise until then. The reference's
-``_constrain_batch`` pins a sharding and is a no-op on one device; the
-port has no counterpart (sharding is ROADMAP queue 1, item 8).
+slice (ROADMAP queue 1, "The LM training slice") and raise until then.
+The reference's ``_constrain_batch`` pins a sharding and is a no-op on one
+device; the port has no counterpart (sharding is ROADMAP queue 1, "Fleet
+sharding and multi-device").
 
 Public surface (the JAX module's names):
   init_params(cfg, gen, device)
@@ -28,7 +29,8 @@ Public surface (the JAX module's names):
   client_apply(cfg, client_params, batch) -> (z, aux)
   local_logits / local_loss               the client's fault-tolerant head
   suffix_apply / server_apply             -> (logits, aux) server branch
-  server_split_loss
+  server_split_loss / server_loss
+  full_loss                               the FedAvg family's loss
   predict / local_predict                 global and client-side inference
 """
 from __future__ import annotations
@@ -52,8 +54,8 @@ def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("vit", "dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family={cfg.family!r}: the port runs the vit, dense, ssm and "
-            "hybrid families only so far (ROADMAP queue 1, item 6: the rest "
-            "of the model zoo)")
+            "hybrid families only so far (ROADMAP queue 1, \"The rest of "
+            "the model zoo\")")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -63,7 +65,8 @@ def check_trainable(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family={cfg.family!r}: the port serves this family "
             "(models/decode.py); its SuperSFL training path comes with the "
-            "LM training slice (ROADMAP queue 1, item 1)")
+            "LM training slice (ROADMAP queue 1, \"The LM training "
+            "slice\")")
 
 
 def layer_role(cfg: ModelConfig) -> str:
@@ -346,6 +349,20 @@ def server_split_loss(cfg: ModelConfig, server_params: Params, z, batch):
     """The server branch's loss over an already-split server view."""
     logits, aux = server_apply(cfg, server_params, z, batch)
     return _server_xent(cfg, logits, aux, batch)
+
+
+def server_loss(cfg: ModelConfig, params: Params, z, batch, d: int):
+    """The server branch's loss over the full tree: stack rows ``[d:]``."""
+    logits, aux = suffix_apply(cfg, params, z, batch, d)
+    return _server_xent(cfg, logits, aux, batch)
+
+
+def full_loss(cfg: ModelConfig, params: Params, batch):
+    """Plain end-to-end loss (the FedAvg family): the prefix to
+    ``cfg.resolved_split_depth``, then the server loss from there."""
+    d = cfg.resolved_split_depth
+    z, aux = prefix_apply(cfg, params, batch, d)
+    return server_loss(cfg, params, z, batch, d) + cfg.router_aux_coef * aux
 
 
 def predict(cfg: ModelConfig, params: Params, batch):

@@ -1,3 +1,3 @@
 from repro_torch.optim.optimizers import (  # noqa: F401
-    Optimizer, adamw, apply_updates, get_optimizer, map_moments, sgd,
-    sgd_momentum)
+    Optimizer, adamw, apply_updates, fedadam, fedyogi, get_optimizer,
+    map_moments, sgd, sgd_momentum)

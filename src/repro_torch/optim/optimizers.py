@@ -15,7 +15,8 @@ are
   * *bookkeeping entries* — scalars and counters (AdamW's int32 ``"t"``).
 
 ``map_moments`` tells the two apart structurally. The FedOpt servers
-(``fedadam``, ``fedyogi``) come with the baselines (ROADMAP queue 1, item 3).
+(``fedadam``, ``fedyogi``) carry two fp32 moment entries, ``"m"`` and
+``"v"``, and no bookkeeping.
 """
 from __future__ import annotations
 
@@ -36,10 +37,6 @@ def get_optimizer(name: str, lr: float, **kw) -> "Optimizer":
     """Resolve an optimizer by name. Identical (name, lr, kw) resolve to
     the SAME instance, as in the reference."""
     if name not in _OPTIMIZERS:
-        if name in ("fedadam", "fedyogi"):
-            raise NotImplementedError(
-                f"optimizer {name!r}: the FedOpt servers come with the "
-                "baselines (ROADMAP queue 1, item 3)")
         raise KeyError(f"unknown optimizer {name!r}; "
                        f"available: {sorted(_OPTIMIZERS)}")
     return _cached_optimizer(name, lr, tuple(sorted(kw.items())))
@@ -137,4 +134,48 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
-_OPTIMIZERS = {"sgd": sgd, "sgd_momentum": sgd_momentum, "adamw": adamw}
+def _fedopt(lr: float, b1: float, b2: float, eps: float,
+            v_rule: Callable) -> Optimizer:
+    """Shared FedOpt skeleton (Reddi et al., Adaptive Federated
+    Optimization — no bias correction): first moment and step are common,
+    ``v_rule(v, g2)`` supplies the second-moment recursion. All fp32."""
+    def init(params):
+        z = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        return {"m": tree_map(z, params), "v": tree_map(z, params)}
+
+    def update(grads, state, params=None):
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: v_rule(v_, torch.square(g.float())),
+                     state["v"], grads)
+        upd = tree_map(lambda m_, v_: -lr * m_ / (torch.sqrt(v_) + eps),
+                       m, v)
+        return upd, {"m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+def fedadam(lr: float, b1: float = 0.9, b2: float = 0.99,
+            eps: float = 1e-3) -> Optimizer:
+    """FedAdam (Reddi et al.): server-side Adam WITHOUT bias correction,
+
+        m <- b1 * m + (1 - b1) * g
+        v <- b2 * v + (1 - b2) * g^2
+        p <- p - lr * m / (sqrt(v) + eps)
+
+    ``g`` is the server pseudo-gradient (``theta_old - theta_avg``);
+    ``eps`` is the paper's tau = 1e-3."""
+    return _fedopt(lr, b1, b2, eps,
+                   lambda v, g2: b2 * v + (1 - b2) * g2)
+
+
+def fedyogi(lr: float, b1: float = 0.9, b2: float = 0.99,
+            eps: float = 1e-3) -> Optimizer:
+    """FedYogi (Reddi et al.): FedAdam with Yogi's additive second-moment
+    rule, ``v <- v - (1 - b2) * g^2 * sign(v - g^2)``."""
+    return _fedopt(lr, b1, b2, eps,
+                   lambda v, g2: v - (1 - b2) * g2 * torch.sign(v - g2))
+
+
+_OPTIMIZERS = {"sgd": sgd, "sgd_momentum": sgd_momentum, "adamw": adamw,
+               "fedadam": fedadam, "fedyogi": fedyogi}

@@ -51,6 +51,15 @@ def tree_unflatten(paths, leaves) -> dict:
     return out
 
 
+def grad_leaves(tree) -> Tuple[List[Tuple], List[Any]]:
+    """(paths, fresh autograd leaves with ``tree``'s values): the inputs
+    of a ``torch.autograd.grad`` over a parameter tree, rebuilt into a
+    tree by ``tree_unflatten(paths, leaves)``."""
+    flat = tree_flatten_with_path(tree)
+    return ([p for p, _ in flat],
+            [x.detach().requires_grad_(True) for _, x in flat])
+
+
 def tree_leaves(tree) -> List[Any]:
     return [leaf for _, leaf in tree_flatten_with_path(tree)]
 

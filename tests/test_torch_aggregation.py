@@ -121,8 +121,8 @@ def test_aggregate_matches_reference_plain_path(seed, use_pallas):
     want, wj = JAGG.aggregate(jcfg, jax.tree.map(jnp.asarray, params),
                               jax.tree.map(jnp.asarray, stacks), depths,
                               jnp.asarray(losses), mask=mask)
-    got, wt = TAGG.aggregate(tcfg, bridge.to_torch(params),
-                             bridge.to_torch(stacks), depths,
+    got, wt = TAGG.aggregate(tcfg, bridge.to_torch(params, device="cpu"),
+                             bridge.to_torch(stacks, device="cpu"), depths,
                              torch.tensor(losses), mask=mask,
                              use_pallas=use_pallas)
     np.testing.assert_allclose(wt.numpy(), np.asarray(wj), **TOL)

@@ -39,7 +39,7 @@ def jax_params():
 
 def test_tree_round_trips_unchanged(jax_params):
     np_tree = jax.tree.map(np.asarray, jax_params)
-    back = bridge.to_numpy(bridge.to_torch(np_tree, "cpu"))
+    back = bridge.to_numpy(bridge.to_torch(np_tree, device="cpu"))
     want, got = _flat_np(np_tree), _flat_np(back)
     assert want.keys() == got.keys()
     for k in want:
@@ -50,7 +50,7 @@ def test_tree_round_trips_unchanged(jax_params):
 def test_bf16_leaves_cross_exactly(jax_params):
     np_tree = jax.tree.map(lambda x: np.asarray(x.astype(jnp.bfloat16)),
                            jax_params)
-    t = bridge.to_torch(np_tree)
+    t = bridge.to_torch(np_tree, device="cpu")
     assert t["layers"]["attn"]["wq"].dtype == torch.float32
     back = bridge.to_numpy(t)
     np.testing.assert_array_equal(

@@ -6,6 +6,7 @@ Inputs come from numpy seeds and go through both packages; weights cross
 through ``repro_torch.bridge``.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -130,6 +131,20 @@ def test_availability_draws_match(fraction):
         np.testing.assert_array_equal(ja.draw(n), ta.draw(n))
 
 
+def test_arrival_state_payloads_cross_packages():
+    """``get_state`` gives the reference's JSON-able payload, and a payload
+    from either package rewinds the other's stream."""
+    ja = JF.AvailabilityModel(0.6, seed=7)
+    ta = TF.AvailabilityModel(0.6, seed=7)
+    for src, dst in ((ja, ta), (ta, ja)):
+        src.draw(5)
+        state = json.loads(json.dumps(src.get_state()))
+        assert state == src.get_state()
+        dst.set_state(state)
+        assert dst.get_state() == src.get_state()
+        np.testing.assert_array_equal(dst.draw(9), src.draw(9))
+
+
 # ---------------------------------------------------------------- optimizers
 
 def _tree_np(seed):
@@ -141,27 +156,44 @@ def _tree_np(seed):
 
 @pytest.mark.parametrize("name,kw", [("sgd", {}), ("sgd_momentum", {}),
                                      ("adamw", {}),
-                                     ("adamw", {"weight_decay": 0.1})])
+                                     ("adamw", {"weight_decay": 0.1}),
+                                     ("fedadam", {}), ("fedyogi", {})])
 def test_optimizer_steps_match(name, kw):
     jopt = JO.get_optimizer(name, 0.05, **kw)
     topt = TO.get_optimizer(name, 0.05, **kw)
     assert topt is TO.get_optimizer(name, 0.05, **kw)
     jp = jax.tree.map(jnp.asarray, _tree_np(0))
-    tp = bridge.to_torch(_tree_np(0))
+    tp = bridge.to_torch(_tree_np(0), device="cpu")
     js, ts = jopt.init(jp), topt.init(tp)
     for step in range(3):
         g = _tree_np(10 + step)
         ju, js = jopt.update(jax.tree.map(jnp.asarray, g), js, jp)
-        tu, ts = topt.update(bridge.to_torch(g), ts, tp)
+        tu, ts = topt.update(bridge.to_torch(g, device="cpu"), ts, tp)
         jp, tp = JO.apply_updates(jp, ju), TO.apply_updates(tp, tu)
     want, got = _flat_np(jp), _flat_t(tp)
     assert want.keys() == got.keys()
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-7)
+    if name in ("fedadam", "fedyogi"):
+        # two fp32 moment entries, no bookkeeping: the reference's slots
+        assert sorted(ts) == sorted(js) == ["m", "v"]
+        for k in ("m", "v"):
+            for path, x in _flat_np(js[k]).items():
+                np.testing.assert_allclose(_flat_t(ts[k])[path], x,
+                                           rtol=1e-6, atol=1e-7)
     if name == "adamw":
         assert ts["t"].dtype == torch.int32 and int(ts["t"]) == 3
         sl = TO.map_moments(lambda t: tree_map(lambda x: x[:1], t), ts, tp)
         assert sl["t"] is ts["t"] and sl["m"]["a"].shape == (1, 4)
+
+
+def test_tree_bytes_matches():
+    from repro.federated import metrics as JMET
+    from repro_torch.federated import metrics as TMET
+    jcfg, tcfg = _cfgs()
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = bridge.to_torch(jax.tree.map(np.asarray, jp), device="cpu")
+    assert TMET.tree_bytes(tp) == JMET.tree_bytes(jp) > 0
 
 
 # ------------------------------------------------------------------ supernet
@@ -170,7 +202,7 @@ def test_optimizer_steps_match(name, kw):
 def test_split_merge_and_bytes_match(d):
     jcfg, tcfg = _cfgs()
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = bridge.to_torch(jax.tree.map(np.asarray, jp))
+    tp = bridge.to_torch(jax.tree.map(np.asarray, jp), device="cpu")
     for jv, tv in zip(JSN.split_params(jcfg, jp, d),
                       TSN.split_params(tcfg, tp, d)):
         want, got = _flat_np(jv), _flat_t(tv)

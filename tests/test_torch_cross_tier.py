@@ -98,7 +98,7 @@ def _tiers_np(params, d, specs, seed):
 
 
 def _t_tiers(tiers):
-    return [TT.TierUpdate(w, torch.tensor(m), bridge.to_torch(t))
+    return [TT.TierUpdate(w, torch.tensor(m), bridge.to_torch(t, device="cpu"))
             for w, m, t in tiers]
 
 
@@ -131,7 +131,8 @@ def test_fuse_tiers_matches(params, specs, delta, use_pallas):
     want = JT.fuse_tiers(jcfg, _j_tiers(tiers), base=None if base is None
                          else jax.tree.map(jnp.asarray, base))
     got = TT.fuse_tiers(tcfg, _t_tiers(tiers), use_pallas=use_pallas,
-                        base=None if base is None else bridge.to_torch(base))
+                        base=None if base is None
+                        else bridge.to_torch(base, device="cpu"))
     fw, fg = _flat_j(want), _flat_t(got)
     assert fg.keys() == fw.keys()
     for k, w in fw.items():
@@ -175,7 +176,7 @@ def test_single_full_width_tier_is_identity(params, d, use_pallas):
     full-width Eq. 4 output survives the cross-tier stage."""
     _, tcfg = _cfgs()
     rng = np.random.default_rng(d)
-    view = bridge.to_torch(_client_view_np(params, d))
+    view = bridge.to_torch(_client_view_np(params, d), device="cpu")
     g = TT.fuse_gradients(_rand_like(view, rng), _rand_like(view, rng),
                           torch.tensor(0.3))
     fused = TT.fuse_tiers(tcfg, [TT.TierUpdate(1.0, torch.tensor(2.5), g)],
@@ -224,7 +225,8 @@ def test_order_invariance(params, case, use_pallas):
     _, tcfg = _cfgs()
     d, specs, seed = case
     tiers = _t_tiers(_tiers_np(params, d, specs, seed))
-    base = _rand_like(bridge.to_torch(_client_view_np(params, d)),
+    base = _rand_like(bridge.to_torch(_client_view_np(params, d),
+                                      device="cpu"),
                       np.random.default_rng(seed))
     for b in (None, base):
         a = TT.fuse_tiers(tcfg, tiers, base=b, use_pallas=use_pallas)
@@ -247,7 +249,7 @@ def test_zero_weight_tier_is_noop(params, case, zw, delta, use_pallas):
     d, specs, seed = case
     tiers = _t_tiers(_tiers_np(params, d, specs, seed))
     rng = np.random.default_rng(seed + 1)
-    view = bridge.to_torch(_client_view_np(params, d))
+    view = bridge.to_torch(_client_view_np(params, d), device="cpu")
     dead = TT.TierUpdate(zw, torch.tensor(0.0),
                          _rand_like(TSN.slice_width(tcfg, view, zw), rng))
     base = _rand_like(view, rng) if delta else None

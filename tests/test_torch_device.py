@@ -1,7 +1,7 @@
 """The port's public constructors run on the card unless told otherwise:
 ``init_params``, ``init_local_head``, ``init_cache``,
-``init_train_state`` and ``bridge.to_model_params`` resolve
-``device=None`` to CUDA and, without a card, raise and ask for
+``init_train_state``, ``bridge.to_model_params`` and ``bridge.to_torch``
+resolve ``device=None`` to CUDA and, without a card, raise and ask for
 ``device="cpu"``; asked for the CPU they build there. (``Engine`` is
 held to the same rule by ``tests/test_torch_engine.py``.)"""
 import pytest
@@ -35,12 +35,13 @@ def _constructors():
             st.params, st.local_heads])(init_train_state(vit, 3, **kw)),
         "to_model_params": lambda **kw: bridge.to_model_params(
             llama, np_params, **kw),
+        "to_torch": lambda **kw: bridge.to_torch(np_params, **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_local_head",
                                   "init_cache", "init_train_state",
-                                  "to_model_params"])
+                                  "to_model_params", "to_torch"])
 def test_constructors_default_to_the_card(monkeypatch, name):
     make = _constructors()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -9,6 +9,9 @@ fleet depths, availability draws and batch indices exactly; evaluate()
 accuracies (global head and local ensemble) exactly. The port runs with
 ``use_pallas`` off and on (on the CPU the kernels' plain versions); the
 reference runs its plain path, which is what its ``ssfl`` executes.
+``test_engine_settings_match_reference`` holds the same at the settings
+no other port test reaches: ``sample_frac=0.5``, the Fig. 6
+``tpgf_variant`` ablations and ``sgd_momentum``.
 """
 import numpy as np
 import pytest
@@ -16,6 +19,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_threads import one_torch_thread  # noqa: E402,F401
+import _torch_parity as P  # noqa: E402
+from _torch_parity import (ARGS, N_CLIENTS, ROUNDS, SMALL,  # noqa: E402
+                           record_streams as _record_streams)
 
 import jax  # noqa: E402
 
@@ -27,32 +33,6 @@ from repro_torch.configs import base as TB  # noqa: E402
 from repro_torch.federated import Engine as TEngine  # noqa: E402
 from repro_torch.federated import engine as TE  # noqa: E402
 from repro_torch.tree import tree_flatten_with_path  # noqa: E402
-
-SMALL = dict(n_layers=4, d_model=48, n_heads=4, n_kv_heads=4, head_dim=12,
-             d_ff=96, image_size=16, n_classes=6)
-ARGS = dict(seed=0, lr=0.3, local_steps=2, batch_size=8, availability=0.8)
-N_CLIENTS = 6
-ROUNDS = 2
-
-
-def _record_streams(engine):
-    """Wrap an engine's availability and batch-index draws to log them."""
-    log = {"avail": [], "idx": []}
-    draw, sample = engine.avail_model.draw, engine._sample_indices
-
-    def logged_draw(n):
-        out = draw(n)
-        log["avail"].append(out.copy())
-        return out
-
-    def logged_sample(*a, **k):
-        out = sample(*a, **k)
-        log["idx"].append(out.copy())
-        return out
-
-    engine.avail_model.draw = logged_draw
-    engine._sample_indices = logged_sample
-    return log
 
 
 @pytest.fixture(scope="module")
@@ -162,11 +142,11 @@ def test_engine_needs_a_device_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"strategy": "sfl"}, "item 3"),
-    ({"strategy": "hasfl"}, "item 5"),
-    ({"strategy": "fedavg"}, "item 3"),
-    ({"mesh": object()}, "item 8"),
-    ({"sanitize": True}, "item 9"),
+    ({"strategy": "unstable"}, "Scenario strategies"),
+    ({"strategy": "hasfl"}, "Scenario strategies"),
+    ({"strategy": "async_buffered"}, "Scenario strategies"),
+    ({"mesh": object()}, "Fleet sharding"),
+    ({"sanitize": True}, "Tooling counterparts"),
 ])
 def test_outside_the_slice_raises(kw, match):
     cfg = TB.get_reduced("vit16_cifar").replace(**SMALL)
@@ -174,3 +154,26 @@ def test_outside_the_slice_raises(kw, match):
     strategy = kw.pop("strategy", "ssfl")
     with pytest.raises(NotImplementedError, match=match):
         TEngine(cfg, 3, strategy, device="cpu", **kw)
+
+
+# Engine settings no other port test holds: each case runs the reference
+# and the port (kernels on) for two rounds and holds all of the above
+SETTINGS = {
+    "sample_frac=0.5": dict(kw=dict(sample_frac=0.5)),
+    "tpgf_variant=no_loss": dict(cfg_kw=dict(tpgf_variant="no_loss")),
+    "tpgf_variant=no_depth": dict(cfg_kw=dict(tpgf_variant="no_depth")),
+    "tpgf_variant=equal": dict(cfg_kw=dict(tpgf_variant="equal")),
+    "sgd_momentum": dict(kw=dict(optimizer="sgd_momentum")),
+}
+
+
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+def test_engine_settings_match_reference(setting):
+    cfg_kw = SETTINGS[setting].get("cfg_kw", {})
+    kw = SETTINGS[setting].get("kw", {})
+    ref = P.run_reference("ssfl", cfg_kw=cfg_kw, **kw)
+    run = P.run_port(ref, True, "ssfl", cfg_kw=cfg_kw, **kw)
+    P.assert_records_match(ref, run)
+    P.assert_params_and_server_match(ref, run)
+    P.assert_streams_match(ref, run)
+    assert run["engine"].evaluate(head="global") == ref["acc_global"]

@@ -37,7 +37,9 @@ def test_port_sources_exist():
                  "csrc/flash_attention.cu", "csrc/ssd_scan.cu",
                  "kernels/tpgf_fusion/ops.py", "kernels/layer_aggregate/ops.py",
                  "kernels/flash_attention/ops.py", "kernels/ssd_scan/ops.py",
-                 "federated/engine.py", "bridge.py"):
+                 "federated/engine.py", "bridge.py",
+                 "federated/strategies/splitfed.py",
+                 "federated/strategies/fedavg.py", "checkpoint/ckpt.py"):
         assert want in names, want
 
 

@@ -177,6 +177,32 @@ def test_aggregate_kernel_all_zero_weights(cuda):
     assert bool(torch.all((got - s).abs() <= ulp))
 
 
+def test_aggregate_kernel_at_splitfeds_presence_pattern(cuda):
+    """SplitFed puts every client at d = L/2: rows >= d carry only the
+    server term lam*s and must come back as the server row (within one
+    ulp, as with all-zero weights); rows < d agree with the plain
+    version."""
+    from repro_torch.kernels.layer_aggregate import ops as O, ref as R
+    N, Lk, rest = 8, 12, (48, 96)
+    d = Lk // 2
+    g = torch.Generator(device=cuda).manual_seed(5)
+    c = torch.randn((N, Lk) + rest, generator=g, device=cuda)
+    c[:, d:] = 0.0                      # the workspace zeroes rows >= d
+    s = torch.randn((Lk,) + rest, generator=g, device=cuda)
+    w = torch.full((N,), 1.0 / N, device=cuda)
+    pres = (torch.arange(Lk, device=cuda) < d).float()
+    ww = (w[:, None] * pres[None, :]).contiguous()
+    got = O.aggregate_leaf(c, ww, s, 0.01)
+    F = c[0, 0].numel()
+    want = R.aggregate(c.reshape(N, Lk, F), ww, s.reshape(Lk, F),
+                       0.01).reshape(s.shape)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    top = s[d:]
+    ulp = torch.nextafter(top.abs(), torch.full_like(top, float("inf"))) \
+        - top.abs()
+    assert bool(torch.all((got[d:] - top).abs() <= ulp))
+
+
 # the chip smoke's flash_attention cases: (B, S, H, K, hd, causal, window)
 FLASH_CASES = [
     (4, 2048, 24, 8, 128, True, 0),      # the serve path's shape

@@ -61,7 +61,7 @@ def setup():
     np_p = jax.tree.map(lambda x: np.asarray(x) + rng.normal(
         0, 0.05, x.shape).astype(np.float32), jp)
     jp = jax.tree.map(jnp.asarray, np_p)
-    tp = bridge.to_torch(np_p)
+    tp = bridge.to_torch(np_p, device="cpu")
     batch_np = {"images": rng.normal(size=(5, 16, 16, 3)).astype(np.float32),
                 "label": rng.integers(0, 6, 5).astype(np.int32)}
     jb = {k: jnp.asarray(v) for k, v in batch_np.items()}

@@ -414,11 +414,11 @@ def test_full_size_parameter_count(arch, fields, count):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_is_not_ported_for_these_families(arch):
     cfg = TB.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(NotImplementedError, match="LM training slice"):
         Engine(cfg, 3, "ssfl", device="cpu")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(NotImplementedError, match="LM training slice"):
         TM.prefix_apply(cfg, params, {"tokens": torch.zeros(
             (1, 4), dtype=torch.long)}, 1)
 

@@ -64,7 +64,7 @@ def setup():
           "label": torch.tensor(batch_np["label"].astype(np.int64))}
     jsplit = jax.jit(functools.partial(JT.tpgf_grads_split, jcfg, jcfg))
     return (jcfg, tcfg, jax.tree.map(jnp.asarray, np_p),
-            bridge.to_torch(np_p), jb, tb, jsplit)
+            bridge.to_torch(np_p, device="cpu"), jb, tb, jsplit)
 
 
 @pytest.mark.parametrize("avail", [True, False])
@@ -126,7 +126,7 @@ def test_clip_by_global_l2(scale):
     tree = {"a": (scale * rng.normal(size=(4, 5))).astype(np.float32),
             "b": {"c": (scale * rng.normal(size=(7,))).astype(np.float32)}}
     jc, jn = JT.clip_by_global_l2(jax.tree.map(jnp.asarray, tree), 0.5)
-    tc, tn = TT.clip_by_global_l2(bridge.to_torch(tree), 0.5)
+    tc, tn = TT.clip_by_global_l2(bridge.to_torch(tree, device="cpu"), 0.5)
     np.testing.assert_allclose(float(tn), float(jn), **TOL)
     for k, v in _flat_j(jc).items():
         np.testing.assert_allclose(_flat_t(tc)[k], v, **TOL)
@@ -169,7 +169,8 @@ def test_fuse_tree_matches_fuse_gradients_and_refuses_tau():
              for k, s in shapes.items()}
     gs_np = {k: rng.normal(size=s).astype(np.float32)
              for k, s in shapes.items()}
-    gc, gs = bridge.to_torch(gc_np), bridge.to_torch(gs_np)
+    gc = bridge.to_torch(gc_np, device="cpu")
+    gs = bridge.to_torch(gs_np, device="cpu")
     w = torch.tensor(0.4)
     got = TFO.fuse_tree(gc, gs, w)
     want = TT.fuse_gradients(gc, gs, w)

@@ -84,7 +84,8 @@ def model(request):
     rng = np.random.default_rng(7)
     np_p = jax.tree.map(lambda x: np.asarray(x) + rng.normal(
         0, 0.05, x.shape).astype(np.float32), jp)
-    return jcfg, tcfg, jax.tree.map(jnp.asarray, np_p), bridge.to_torch(np_p)
+    return (jcfg, tcfg, jax.tree.map(jnp.asarray, np_p),
+            bridge.to_torch(np_p, device="cpu"))
 
 
 # ------------------------------------------------------- config and plan
@@ -129,7 +130,8 @@ def test_width_views_match(model, width):
     want = JSN.scatter_width(jcfg, jfull, jax.tree.map(jnp.asarray, new_np),
                              width)
     before = {k: v.copy() for k, v in _flat_t(tfull).items()}
-    got = TSN.scatter_width(tcfg, tfull, bridge.to_torch(new_np), width)
+    got = TSN.scatter_width(tcfg, tfull,
+                            bridge.to_torch(new_np, device="cpu"), width)
     _assert_trees_equal(got, want)
     for k, v in _flat_t(tfull).items():        # the input is not written
         np.testing.assert_array_equal(v, before[k])
@@ -263,7 +265,8 @@ def test_aggregate_with_widths_matches(model, seed, use_pallas):
     want, wj = JAGG.aggregate(jcfg, jp, jax.tree.map(jnp.asarray, stacks),
                               depths, jnp.asarray(losses), mask=mask,
                               widths=widths)
-    got, wt = TAGG.aggregate(tcfg, tp, bridge.to_torch(stacks), depths,
+    got, wt = TAGG.aggregate(tcfg, tp, bridge.to_torch(stacks, device="cpu"),
+                             depths,
                              torch.tensor(losses), mask=mask,
                              use_pallas=use_pallas, widths=widths)
     np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=1e-6,
