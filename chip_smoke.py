@@ -21,7 +21,9 @@ Phases, one JSON line each (plus the card's name and power limit as
      and the bound (bytes over 3.35 TB/s vs operations over the peak of
      their type: 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s
      bf16); ``flash_attention`` and ``ssd_scan`` are timed at both of
-     their paths' shapes and carry their ``ptxas`` registers and spills;
+     their paths' shapes and carry their ``ptxas`` registers and spills,
+     and ``fuse`` also in bf16 at the LM training path's largest client
+     leaf (within one bf16 ulp; a ``kernel_bf16`` line);
      then, where the machine has ``ncu``, one ``ncu --set full`` profile
      of each at its path's shape (``--ncu-target`` is that profile's
      target, not a mode to run by hand);
@@ -78,8 +80,26 @@ Phases, one JSON line each (plus the card's name and power limit as
      1600, 25 query and 5 KV heads of 64, 50 SSM heads of 64, state 16):
      ``flash_attention`` and ``ssd_scan`` must each launch 32 times a
      prefill; its launches get a line of their own;
- 13. the ``kernels`` summary line; each kernel's ``launches`` come from
-     the path named beside it (counts set to 0 just before that path).
+ 13. lm train path — Mamba2-2.7B at full width and depth trained by
+     ``launch.steps.make_train_step`` with its config (bf16, remat, 4
+     microbatches, AdamW with fp32 moments), 3 steps of 8 × 512 tokens
+     from ``synthetic_lm_batches``, the serving weights freed first, with
+     the kernels on: Eq. 4 runs ``fuse`` on the bf16 client gradients,
+     once per client leaf and microbatch, and no other kernel may launch
+     (the scan records a gradient, so it takes ``ssd_chunked``). The
+     gate on the kernel: the first microbatch's fused client gradient,
+     kernels on vs off, within one bf16 ulp elementwise, the losses
+     equal. Then the same steps with the kernels off from the same
+     weights: step-1 losses bit for bit, later ones within
+     ``TRAIN_LOSS_RTOL``. Step wall, tokens/s, peak memory, a profiled
+     step;
+ 14. dense train path — Llama-3.2-3B at full width and depth trained
+     through ``launch/train.py``'s config and loop (one microbatch,
+     bf16, remat, ``adamw(1e-3)``) with the kernels off, 3 steps of
+     8 × 512: finite losses, no kernel launch, the same figures;
+ 15. the ``kernels`` summary line; each kernel's ``launches`` come from
+     the path named beside it (counts set to 0 just before that path);
+     the two training paths' launches get a line of their own.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it; so does a machine without a CUDA device, and a
@@ -267,7 +287,11 @@ def _check(name, got, want, rtol, atol):
     return mx
 
 
-def phase_fuse(client_shape):
+def phase_fuse(client_shape, bf16_shape):
+    """``fuse`` against its plain version (fp32 and bf16, the main path's
+    largest client leaf and small ragged ones), timed at the main path's
+    fp32 leaf (the returned row) and at ``bf16_shape``, the LM training
+    path's largest bf16 client leaf (a line of its own)."""
     import torch
     from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -309,6 +333,31 @@ def phase_fuse(client_shape):
            "bound_by": bound_by, "library_ms": library_ms,
            "library_call": "torch.lerp(b, a, w)"}
     emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
+    del a, b
+
+    # bf16, as the LM training path calls it: w from Eq. 3 and the clip
+    # scale 1.0 on the device; one bf16 ulp is the limit
+    a = torch.randn(bf16_shape, generator=gen, device=dev).bfloat16()
+    b = torch.randn(bf16_shape, generator=gen, device=dev).bfloat16()
+    got, want = O.fuse_leaf(a, b, w, one), R.fuse(a, b, w, one)
+    ulps = int((_bf16_order(got) - _bf16_order(want)).abs().max())
+    if ulps > 1:
+        die(f"fuse bf16 {tuple(bf16_shape)}: {ulps} bf16 ulps from its "
+            "plain version")
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    n = a.numel()
+    bf16 = {"name": "fuse", "shape": list(bf16_shape), "dtype": "bfloat16",
+            "max_abs_err": err, "max_bf16_ulps": ulps,
+            "ms": time_ms(lambda: O.fuse_leaf(a, b, w, one)),
+            "plain_ms": time_ms(lambda: R.fuse(a, b, w, one)),
+            "library_ms": time_ms(lambda: torch.lerp(b, a, w.bfloat16())),
+            "library_call": "torch.lerp(b, a, w) in bf16"}
+    bf16["bound_ms"], bf16["bound_by"] = bound(6.0 * n, 4.0 * n,
+                                               FP32_FLOPS_PER_S)
+    emit({"phase": "kernel_bf16", **bf16})
+    del a, b
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1150,6 +1199,225 @@ def phase_serve_path(name, arch, expect):
     return launches
 
 
+# ------------------------------------------------------ LM training paths
+# both paths: batch 8 x 512 tokens from synthetic_lm_batches (seed 1),
+# random weights drawn on the card from seed 0, full width and depth
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 3
+# kernels on vs off after step 1 (the runs' losses are equal before the
+# first update): |Δloss| / loss
+TRAIN_LOSS_RTOL = 1e-2
+
+
+def _bf16_order(t):
+    """bf16 bits as integers in the order of the values (+0 = −0)."""
+    import torch
+    bits = t.contiguous().view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _ulp_gate(got, want):
+    """(largest distance in bf16 steps, share of elements that differ)
+    over two trees of bf16 leaves."""
+    from repro_torch.tree import tree_flatten_with_path, tree_get
+    worst, differ, n = 0, 0, 0
+    for path, x in tree_flatten_with_path(got):
+        dist = (_bf16_order(x) - _bf16_order(tree_get(want, path))).abs()
+        worst = max(worst, int(dist.max()))
+        differ += int((dist > 0).sum())
+        n += x.numel()
+    return worst, differ / n
+
+
+def _train_run(cfg, step_fn, opt, name, steps):
+    """``steps`` steps of ``step_fn`` from seed-0 weights on the card,
+    each timed after ``torch.cuda.synchronize()``; launch counts set to
+    0 just before the first step. Returns (params, opt_state, per-step
+    records, launches, peak GB, the last batch)."""
+    import torch
+    from repro_torch.launch.train import device_batches, train
+    from repro_torch.models.model import init_params
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    opt_state = opt.init(params)
+    batches = list(device_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, steps,
+                                  "cuda"))
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = [time.perf_counter()]
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append(now - clock[0])
+        clock[0] = now
+
+    _zero_counts()
+    params, opt_state, hist = train(step_fn, params, opt_state, batches,
+                                    log_every=1, on_step=on_step,
+                                    out=lambda line: None)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    recs = []
+    for rec, wall in zip(hist, walls):
+        rec = {**rec, "wall_ms": wall * 1e3, "tokens_per_s": ntok / wall}
+        emit({"phase": "train_step", "run": name, **rec})
+        if not all(math.isfinite(rec[k]) for k in ("loss_client",
+                                                   "loss_server")):
+            die(f"{name}: step {rec['step']} loss is not finite")
+        recs.append(rec)
+    return params, opt_state, recs, launches, peak_gb, batches[-1]
+
+
+def phase_lm_train_path(arch):
+    """Mamba2-2.7B at full width and depth trained by ``make_train_step``
+    (bf16, remat, 4 microbatches, AdamW with the config's moment dtype)
+    with the kernels on: Eq. 4 runs the ``fuse`` kernel on the bf16
+    client gradients (4 launches a microbatch per client leaf) and no
+    other kernel may launch (the scan records a gradient, so it takes
+    ``ssd_chunked``). Gate on the kernel: the first microbatch's fused
+    client gradient with the kernels on vs off within one bf16 ulp
+    elementwise (and the losses equal). Then the same steps with the
+    kernels off from the same weights: step-1 losses bit for bit, later
+    ones within TRAIN_LOSS_RTOL; a profiled step."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import supernet as SN
+    from repro_torch.core import tpgf as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import device_batches
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch).replace(use_pallas=True)
+    d, mb = cfg.resolved_split_depth, cfg.microbatches
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    n_params = param_count(params)
+    batch = next(device_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, 1, "cuda"))
+    mb0 = {k: v[:TRAIN_BATCH // mb] for k, v in batch.items()}
+    gate, gate_launches = {}, {}
+    for label, on in (("on", True), ("off", False), ("off_again", False)):
+        c = cfg.replace(use_pallas=on)
+        client, server, local = SN.split_params(c, params, d)
+        _zero_counts()
+        out = T.tpgf_grads_split(c, c, client, server, local, mb0, d)
+        torch.cuda.synchronize()
+        gate_launches[label] = _counts()
+        gate[label] = (out.g_client, float(out.loss_client),
+                       float(out.loss_server), float(out.w_client))
+        del out, client, server, local
+    n_leaves = len(tree_leaves(gate["on"][0]))
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 tree_leaves(gate["on"][0])) and all(
+        math.isfinite(v) for v in gate["on"][1:])
+    if not finite:
+        die("lm_train_path gate: the fused client gradient or a loss is "
+            "not finite")
+    worst, share = _ulp_gate(gate["on"][0], gate["off"][0])
+    det_worst, det_share = _ulp_gate(gate["off"][0], gate["off_again"][0])
+    same_losses = gate["on"][1:] == gate["off"][1:]
+    emit({"phase": "lm_train_gate", "config": cfg.name,
+          "split_depth": d, "client_leaves": n_leaves,
+          "launches_kernels_on": gate_launches["on"],
+          "losses_on": gate["on"][1:], "losses_off": gate["off"][1:],
+          "losses_equal": same_losses,
+          "fused_client_grad_max_bf16_ulps": worst,
+          "fused_client_grad_share_differing": share,
+          "plain_vs_plain_max_bf16_ulps": det_worst,
+          "plain_vs_plain_share_differing": det_share})
+    if gate_launches["on"]["fuse"] != n_leaves or any(
+            v for k, v in gate_launches["on"].items() if k != "fuse"):
+        die(f"lm_train_path gate: launches {gate_launches['on']}, expected "
+            f"fuse {n_leaves} and nothing else")
+    if not same_losses or worst > 1:
+        die(f"lm_train_path gate: kernels on vs off: losses equal "
+            f"{same_losses}, fused client gradient {worst} bf16 ulps apart")
+    del gate, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for on in (True, False):
+        c = cfg.replace(use_pallas=on)
+        step_fn, opt = make_train_step(c)
+        name = f"lm_train_path/{'kernels' if on else 'plain'}"
+        params, opt_state, recs, launches, peak_gb, last = _train_run(
+            c, step_fn, opt, name, TRAIN_STEPS)
+        runs[on] = recs
+        if on:
+            want = {k: 0 for k in launches}
+            want["fuse"] = TRAIN_STEPS * mb * n_leaves
+            if launches != want:
+                die(f"lm_train_path: {TRAIN_STEPS} steps launched "
+                    f"{launches}, expected {want}")
+            walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
+            wall_ms = statistics.median(walls)
+            emit({"phase": "lm_train_path", "config": cfg.name,
+                  **_config_fields(cfg), "dtype": cfg.dtype,
+                  "params": n_params, "remat": cfg.remat,
+                  "microbatches": mb, "split_depth": d,
+                  "moment_dtype": cfg.adam_moment_dtype,
+                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                  "steps": TRAIN_STEPS, "launches": launches,
+                  "step_wall_ms": wall_ms,
+                  "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3),
+                  "peak_mem_gb": peak_gb})
+            _profile(lambda: step_fn(params, opt_state, last),
+                     wall_ms / 1e3, "lm_train")
+        elif any(launches.values()):
+            die(f"lm_train_path: kernels off launched {launches}")
+        del params, opt_state, step_fn, opt, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    keys = ("loss_client", "loss_server", "w_client")
+    step1_equal = all(on[0][k] == off[0][k] for k in keys)
+    rel = [max(abs(a[k] - b[k]) / abs(b[k]) for k in keys)
+           for a, b in zip(on[1:], off[1:])]
+    emit({"phase": "agreement", "path": "lm_train_path",
+          "step1_losses_equal": step1_equal,
+          "later_steps_max_rel_diff": rel, "limit": TRAIN_LOSS_RTOL})
+    if not step1_equal or any(r > TRAIN_LOSS_RTOL for r in rel):
+        die(f"lm_train_path: kernels on vs off: step 1 equal "
+            f"{step1_equal}, later steps {rel} (limit {TRAIN_LOSS_RTOL})")
+    return {"fuse": TRAIN_STEPS * mb * n_leaves}
+
+
+def phase_dense_train_path(arch):
+    """Llama-3.2-3B at full width and depth trained through
+    ``launch/train.py``'s config and loop (one microbatch, bf16, remat,
+    ``adamw(1e-3)``) with the kernels off, as the reference can only
+    train it: finite losses, no kernel launch, step wall, tokens/s, peak
+    memory, a profiled step."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.model import param_count
+    from repro_torch.optim import adamw
+    cfg = train_config(arch, reduced=False)
+    step_fn, opt = make_train_step(cfg, adamw(1e-3))
+    params, opt_state, recs, launches, peak_gb, last = _train_run(
+        cfg, step_fn, opt, "dense_train_path", TRAIN_STEPS)
+    if any(launches.values()):
+        die(f"dense_train_path: a kernel launched: {launches}")
+    walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
+    wall_ms = statistics.median(walls)
+    emit({"phase": "dense_train_path", "config": cfg.name,
+          **_config_fields(cfg), "dtype": cfg.dtype,
+          "params": param_count(params), "remat": cfg.remat,
+          "microbatches": cfg.microbatches,
+          "split_depth": cfg.resolved_split_depth, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "launches": launches,
+          "step_wall_ms": wall_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3),
+          "peak_mem_gb": peak_gb})
+    _profile(lambda: step_fn(params, opt_state, last), wall_ms / 1e3,
+             "dense_train")
+    return launches
+
+
 def _is_port_kernel(name: str) -> bool:
     """A profiler row of one of the port's CUDA kernels (``csrc/``)."""
     return any(f"(anonymous namespace)::{k}" in name for k in PORT_KERNELS)
@@ -1270,6 +1538,17 @@ def phase_ncu():
 
 
 # ------------------------------------------------------------------- main
+def _largest_client_leaf(cfg):
+    """The shape of the largest leaf of ``cfg``'s client view at its
+    split depth (on the meta device: shapes only)."""
+    from repro_torch.core.supernet import split_params
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves
+    client = split_params(cfg, init_params(cfg, None, device="meta"),
+                          cfg.resolved_split_depth)[0]
+    return tuple(max(tree_leaves(client), key=lambda x: x.numel()).shape)
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         die(f"{SRC / 'repro_torch'} not found: run this script from the "
@@ -1303,7 +1582,8 @@ def main() -> None:
                 if len(set(widths[fleet.depths == d])) > 1)
     lm = get_config(SERVE_ARCH)
     ssm, hybrid = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
-    rows = [phase_fuse((d_max, cfg.d_model, cfg.d_ff)),
+    rows = [phase_fuse((d_max, cfg.d_model, cfg.d_ff),
+                       _largest_client_leaf(ssm)),
             phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff),
             phase_tier_sum((cfg.n_layers - d_mix, cfg.d_model, cfg.d_ff)),
             phase_sumsq(cfg, d_max),
@@ -1352,6 +1632,12 @@ def main() -> None:
     launches["hybrid_serve_path"] = phase_serve_path(
         "hybrid_serve_path", HYBRID_ARCH,
         {"flash_attention": hybrid.n_layers, "ssd_scan": hybrid.n_layers})
+    gc.collect()                      # the serving weights go first
+    torch.cuda.empty_cache()
+    train_launches = {"lm_train_path": phase_lm_train_path(SSM_ARCH)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches["dense_train_path"] = phase_dense_train_path(SERVE_ARCH)
     # each kernel's launches come from the path that carries it
     carried_by = {"fuse": "main_path", "aggregate": "main_path",
                   "tier_sum": "width_path", "sumsq": "clip_path",
@@ -1367,6 +1653,7 @@ def main() -> None:
     # aggregate; their launches stand here
     emit({"hybrid_serve_path_launches": launches["hybrid_serve_path"]})
     emit({"baseline_path_launches": baseline})
+    emit({"train_path_launches": train_launches})
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     # hand the card's memory back before the result, so that the exit
     # after it has little left to tear down

@@ -10,10 +10,12 @@ to nothing (callers re-initialize them, e.g. a stateless optimizer's
 manifest, so a truncated or mismatched pair fails loudly instead of
 restoring garbage, and returns numpy arrays.
 
-bfloat16 leaves are refused, on write and on read: numpy has no
-bfloat16, and raw 16-bit words would read back as integers. No trainable
-configuration has bfloat16 leaves yet; they come with the LM training
-slice.
+bfloat16 leaves are written as the reference writes them: numpy has no
+bfloat16, so the npz holds each one's raw 2-byte words (dtype ``|V2``)
+and the manifest names its dtype ``"bfloat16"``. ``load_checkpoint``
+returns such a leaf as a CPU ``torch.bfloat16`` tensor with the same
+bits (no numpy type holds them losslessly); every other leaf comes back
+as a numpy array.
 """
 from __future__ import annotations
 
@@ -25,25 +27,30 @@ import numpy as np
 import torch
 
 FORMAT_VERSION = 1
+_BF16 = "bfloat16"
+_RAW16 = np.dtype("V2")          # how np.savez stores a bfloat16 array
 
 
-def _no_bf16(path: str, key: str) -> ValueError:
-    return ValueError(
-        f"checkpoint {path!r}: leaf {key!r} is bfloat16, which this format "
-        "cannot hold (numpy has no bfloat16); bfloat16 training state "
-        "comes with the LM training slice (ROADMAP queue 1, \"The LM "
-        "training slice\")")
-
-
-def _leaf(path: str, key: str, x) -> np.ndarray:
+def _leaf(x) -> Tuple[np.ndarray, str]:
+    """(the array to write, the manifest's dtype name)."""
     if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
-            raise _no_bf16(path, key)
-        return x.detach().cpu().numpy()
-    arr = np.asarray(x)
-    if arr.dtype.name == "bfloat16":
-        raise _no_bf16(path, key)
-    return arr
+            return x.view(torch.int16).numpy().view(_RAW16), _BF16
+        arr = x.numpy()
+    else:
+        arr = np.asarray(x)
+        if arr.dtype.name == _BF16:
+            return arr.view(np.uint16).view(_RAW16), _BF16
+    return arr, str(arr.dtype)
+
+
+def _bf16_tensor(path: str, key: str, arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.itemsize != 2:
+        raise ValueError(f"checkpoint {path!r}: {key} is bfloat16 in the "
+                         f"manifest but {arr.dtype} in the npz payload")
+    words = np.ascontiguousarray(arr).view(np.int16)
+    return torch.from_numpy(words.copy()).view(torch.bfloat16)
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -66,23 +73,22 @@ def save_checkpoint(path: str, tree: Dict[str, Any], *, step: int = 0,
     """Write ``tree`` (tensors, numpy arrays or scalars) to
     ``<path>.npz`` and its manifest to ``<path>.json``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    flat = {k: _leaf(path, k, v) for k, v in _flatten(tree).items()}
+    leaves = {k: _leaf(v) for k, v in _flatten(tree).items()}
+    flat = {k: arr for k, (arr, _) in leaves.items()}
     np.savez(path + ".npz", **flat)
     manifest = {"format": FORMAT_VERSION, "step": step, "meta": meta or {},
                 "keys": sorted(flat.keys()),
-                "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+                "dtypes": {k: name for k, (_, name) in leaves.items()},
                 "shapes": {k: list(v.shape) for k, v in flat.items()}}
     with open(path + ".json", "w") as f:
         json.dump(manifest, f, indent=1)
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """-> (nested dict of numpy arrays, manifest)."""
+    """-> (nested dict of numpy arrays, bfloat16 leaves as CPU
+    ``torch.bfloat16`` tensors; the manifest)."""
     with open(path + ".json") as f:
         manifest = json.load(f)
-    for key in manifest["keys"]:
-        if manifest["dtypes"].get(key) == "bfloat16":
-            raise _no_bf16(path, key)
     tree: Dict[str, Any] = {}
     with np.load(path + ".npz") as data:
         missing = sorted(set(manifest["keys"]) - set(data.files))
@@ -96,6 +102,8 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
             if arr.shape != want_shape:
                 raise ValueError(f"checkpoint {path!r}: {key} has shape "
                                  f"{arr.shape}, manifest says {want_shape}")
+            if manifest["dtypes"].get(key) == _BF16:
+                arr = _bf16_tensor(path, key, arr)
             parts = key.split("/")
             node = tree
             for p in parts[:-1]:

@@ -15,6 +15,9 @@ detached into a leaf that feeds both heads, and two
 each head's dL/dz back through the one retained graph.
 
 Everything returns *gradients*; ``repro_torch.optim`` applies them.
+``tpgf_grads`` and ``local_only_grads`` take and return full-params
+trees (the LM train step's form); ``tpgf_grads_split`` works on the
+split views (the federated strategies' form).
 """
 from __future__ import annotations
 
@@ -28,6 +31,14 @@ from repro_torch.core import supernet as SN
 from repro_torch.models import model as M
 from repro_torch.tree import (grad_leaves, tree_flatten_with_path,
                               tree_leaves, tree_map, tree_unflatten)
+
+
+class TPGFOut(NamedTuple):
+    grads: Dict[str, Any]        # full-params-aligned gradient tree
+    loss_client: torch.Tensor
+    loss_server: torch.Tensor
+    w_client: torch.Tensor
+    aux: Any                     # MoE router load-balance loss
 
 
 class TPGFSplitOut(NamedTuple):
@@ -88,11 +99,14 @@ def _fault_degrade(server_available, w_c, g_server_params, g_client,
 
 
 def clip_by_global_l2(tree, tau: float):
-    """Paper's Phase-1 encoder-gradient clip (tau = 0.5)."""
+    """Paper's Phase-1 encoder-gradient clip (tau = 0.5). Each leaf is
+    scaled in fp32 and cast back, as the reference's bf16 × f32 product
+    promotes (a bf16 leaf times an fp32 device scalar would compute in
+    bf16 on the card)."""
     sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
     norm = torch.sqrt(sq)
     scale = torch.clamp(tau / (norm + 1e-12), max=1.0)
-    return tree_map(lambda x: (x * scale).to(x.dtype), tree), norm
+    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 
 
 def fuse_gradients(g_client, g_server, w_client, *, use_pallas: bool = False):
@@ -105,6 +119,39 @@ def fuse_gradients(g_client, g_server, w_client, *, use_pallas: bool = False):
     return tree_map(
         lambda a, b: (w_c * a.float() + (1.0 - w_c) * b.float()).to(a.dtype),
         g_client, g_server)
+
+
+def tpgf_grads(cfg: ModelConfig, params, batch, d: int, *,
+               server_available=None) -> TPGFOut:
+    """One TPGF iteration's gradients for every parameter group of the
+    full tree at the static depth ``d``: split, ``tpgf_grads_split``,
+    merge (the stack gradient's rows ``[:d]`` are the client's, ``[d:]``
+    the server's)."""
+    client_p, server_p, local_p = SN.split_params(cfg, params, d)
+    out = tpgf_grads_split(cfg, cfg, client_p, server_p, local_p, batch, d,
+                           server_available=server_available)
+    grads = SN.merge_params(cfg, out.g_client, out.g_server, out.g_local)
+    return TPGFOut(grads, out.loss_client, out.loss_server, out.w_client,
+                   out.aux)
+
+
+def local_only_grads(cfg: ModelConfig, params, batch, d: int):
+    """The fallback step when the server is unreachable (Algorithm 3's
+    else-branch): the encoder and the local head trained from the client
+    classifier alone, the encoder gradient clipped; the server parameters
+    get zero. Returns (grads, loss_client)."""
+    client_p, server_p, local_p = SN.split_params(cfg, params, d)
+    c_paths, c_leaves = grad_leaves(client_p)
+    l_paths, l_leaves = grad_leaves(local_p)
+    z, _ = M.client_apply(cfg, tree_unflatten(c_paths, c_leaves), batch)
+    loss = M.local_loss(cfg, tree_unflatten(l_paths, l_leaves), z, batch)
+    grads = torch.autograd.grad(loss, c_leaves + l_leaves)
+    g_client = tree_unflatten(c_paths, grads[:len(c_leaves)])
+    g_local = tree_unflatten(l_paths, grads[len(c_leaves):])
+    g_client, _ = clip_by_global_l2(g_client, cfg.tpgf_clip)
+    zeros_server = tree_map(torch.zeros_like, server_p)
+    return (SN.merge_params(cfg, g_client, zeros_server, g_local),
+            loss.detach())
 
 
 def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,

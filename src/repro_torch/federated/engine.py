@@ -81,7 +81,14 @@ class Engine:
                  mesh=None, sanitize: bool = False, width_tiers=None,
                  cross_tier: str = "fused", device=None):
         assert 0.0 < sample_frac <= 1.0
-        M.check_trainable(cfg)
+        M.check_family(cfg)
+        if cfg.family != "vit":
+            raise NotImplementedError(
+                f"Engine: family={cfg.family!r}: the engine feeds image "
+                "batches only, as the reference's Engine does (its first "
+                "round fails on an LM config); train an LM family with "
+                "repro_torch.launch.steps.make_train_step or "
+                "python -m repro_torch.launch.train")
         if cross_tier not in ("fused", "chained"):
             raise ValueError(
                 f"cross_tier={cross_tier!r}: expected 'fused' or 'chained'")

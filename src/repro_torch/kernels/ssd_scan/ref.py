@@ -4,14 +4,22 @@ of the JAX package's ``models/ssm.py::ssd_chunked``, op for op.
 Per chunk of ``chunk`` rows, with the state h carried across chunks:
 
     s = cumsum(dt·A)                       u = x·dt
-    W = tril(C Bᵀ ∘ exp(sᵢ − sⱼ))          (masked by ``where``, so the
-                                            overflowing upper half never
-                                            reaches the product)
+    W = tril(C Bᵀ ∘ exp(sᵢ − sⱼ))          (the exponent masked to −inf
+                                            above the diagonal first)
     y = W u + exp(s)·(C hᵀ)
     h ← exp(s_last)·h + Σⱼ exp(s_last − sⱼ)·uⱼ ⊗ Bⱼ
 
 A sequence that ``chunk`` does not divide is taken as ONE chunk of S
 rows, as the reference does.
+
+The reference takes ``exp`` of the whole [cl, cl] matrix of sᵢ − sⱼ and
+masks the product afterwards; above the diagonal sᵢ − sⱼ > 0 grows with
+the chunk and overflows to inf once Σ dt·|A| over a chunk passes ~88
+(Mamba2-2.7B at full width does). The forward never sees it, but the
+backward sends 0 · inf = NaN into dt, A, B and C. Here the exponent is
+masked to −inf above the diagonal before ``exp``: the forward is the
+same bit for bit, and the gradient is the reference's wherever that one
+is finite (departure (f) in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -40,8 +48,10 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = DEFAULT_CHUNK, h0=None):
         s = torch.cumsum(dtk * A, dim=1)                     # [Bt,cl,nh]
         u = xk * dtk[..., None]                              # [Bt,cl,nh,hd]
         CB = torch.einsum("bis,bjs->bij", Ck, Bk)            # [Bt,cl,cl]
-        Lm = torch.exp(s[:, :, None, :] - s[:, None, :, :])  # [Bt,i,j,nh]
-        W = torch.where(tri[None, :, :, None], CB[..., None] * Lm, 0.0)
+        lower = tri[None, :, :, None]
+        Lm = torch.exp(torch.where(lower, s[:, :, None, :] - s[:, None, :, :],
+                                   -torch.inf))              # [Bt,i,j,nh]
+        W = torch.where(lower, CB[..., None] * Lm, 0.0)
         y = torch.einsum("bijh,bjhd->bihd", W, u)            # intra-chunk
         y = y + torch.einsum("bis,bih,bhds->bihd", Ck, torch.exp(s), h)
         decay_end = torch.exp(s[:, -1:, :] - s)              # [Bt,cl,nh]

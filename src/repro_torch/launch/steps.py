@@ -1,18 +1,131 @@
-"""Serving step functions of the assembled super-network: the
-teacher-forced cache-building forward and the single-token decode.
+"""Production step functions of the assembled super-network.
 
-The JAX package's ``make_train_step`` (the production TPGF train step)
-comes with the LM training slice (ROADMAP queue 1, "The LM training
-slice"). Both steps
-here run without autograd: serving needs no graph, and the flash kernel
-has no backward.
+``make_train_step`` is the paper's technique at LM scale: embed -> client
+prefix -> {local head loss; server suffix + head loss} -> two backward
+passes through one prefix graph -> clip + TPGF fusion (Eqs. 3-4) -> the
+optimizer, with the batch split into ``cfg.microbatches`` microbatches
+whose gradients accumulate in fp32.
+
+``make_prefill_step`` / ``make_serve_step`` are the teacher-forced
+cache-building forward and the single-token decode. Both run without
+autograd: serving needs no graph, and the serving kernels have no
+backward.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tpgf as T
 from repro_torch.models import decode as D
+from repro_torch.models.model import layer_role
+from repro_torch.optim import adamw
+from repro_torch.tree import (tree_flatten_with_path, tree_get, tree_map,
+                              tree_structure)
+
+
+def _microbatches(batch, mb: int):
+    """``batch`` cut into ``mb`` equal slices along its leading axis."""
+    out = [dict() for _ in range(mb)]
+    for k, v in batch.items():
+        if v.shape[0] % mb:
+            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a "
+                             f"multiple of microbatches={mb}")
+        for i, part in enumerate(v.reshape((mb, v.shape[0] // mb)
+                                           + tuple(v.shape[1:]))):
+            out[i][k] = part
+    return out
+
+
+def apply_in_place(opt, grads, opt_state, params):
+    """``opt.update`` then ``apply_updates``, one leaf at a time, each new
+    value written into the tensor it replaces: the same arithmetic as the
+    whole-tree call, with no second copy of the moments or the
+    parameters alive at once (at Llama-3.2-3B's full width that copy
+    alone is 40 GB). ``opt_state`` must follow the optimizer state-shape
+    contract (``optim.map_moments``): its moment entries are updated in
+    place and its bookkeeping entries (AdamW's ``t``) replaced once."""
+    pdef = tree_structure(params)
+    stateful = isinstance(opt_state, dict)
+    moments = ([k for k, v in opt_state.items()
+                if tree_structure(v) == pdef] if stateful else [])
+    new_book = {}
+    for path, p in tree_flatten_with_path(params):
+        sub = ({k: ({"x": tree_get(v, path)} if k in moments else v)
+                for k, v in opt_state.items()} if stateful else opt_state)
+        upd, new = opt.update({"x": tree_get(grads, path)}, sub, {"x": p})
+        p.copy_(p + upd["x"].to(p.dtype))
+        if stateful:
+            for k in moments:
+                tree_get(opt_state[k], path).copy_(new[k]["x"])
+            new_book = {k: v for k, v in new.items() if k not in moments}
+        del upd, new, sub
+    if stateful:
+        opt_state.update(new_book)
+    return params, opt_state
+
+
+def make_train_step(cfg: ModelConfig, opt=None):
+    """-> (train_step, opt). ``train_step(params, opt_state, batch)``
+    returns ``(params, opt_state, metrics)``, having updated ``params``
+    and ``opt_state`` in place (see ``apply_in_place``), with metrics
+    ``loss_client``, ``loss_server``, ``w_client`` (means over the
+    microbatches) and ``aux`` as fp32 device scalars. The default
+    optimizer is ``adamw(3e-4, weight_decay=0.1)`` with the config's
+    ``adam_moment_dtype``. ``batch`` holds ``tokens`` and ``labels``
+    [B, S] (and optionally ``valid``), B a multiple of
+    ``cfg.microbatches``.
+
+    A family with attention trains only with ``use_pallas=False``: the
+    flash kernel has no backward (nor has the reference's, whose step
+    fails there too). The ssm family trains with the kernels on: its
+    scan takes the plain ``ssd_chunked`` under autograd and Eq. 4 the
+    ``fuse`` kernel."""
+    if cfg.use_pallas and layer_role(cfg) in ("dense", "moe", "hybrid"):
+        raise NotImplementedError(
+            f"train step, family={cfg.family!r} with use_pallas=True: the "
+            "flash_attention kernel has no backward (nor has the JAX "
+            "package's); train this family with use_pallas=False")
+    opt = opt or adamw(3e-4, weight_decay=0.1,
+                       moment_dtype=cfg.adam_moment_dtype)
+    d = cfg.resolved_split_depth
+    mb = max(cfg.microbatches, 1)
+
+    def compute_grads(params, batch):
+        if mb == 1:
+            out = T.tpgf_grads(cfg, params, batch, d)
+            return out.grads, {"loss_client": out.loss_client,
+                               "loss_server": out.loss_server,
+                               "w_client": out.w_client,
+                               "aux": torch.as_tensor(
+                                   out.aux, dtype=torch.float32,
+                                   device=out.loss_client.device)}
+        acc, lc, ls, wc = None, [], [], []
+        for mbatch in _microbatches(batch, mb):
+            out = T.tpgf_grads(cfg, params, mbatch, d)
+            if acc is None:
+                acc = tree_map(lambda g: torch.zeros(
+                    g.shape, dtype=torch.float32, device=g.device),
+                    out.grads)
+            tree_map(lambda a, g: a.add_(g.float() / mb), acc, out.grads)
+            lc.append(out.loss_client)
+            ls.append(out.loss_server)
+            wc.append(out.w_client)
+            del out
+        grads = tree_map(lambda g, p: g.to(p.dtype), acc, params)
+        dev = lc[0].device
+        metrics = {"loss_client": torch.stack(lc).mean(),
+                   "loss_server": torch.stack(ls).mean(),
+                   "w_client": torch.stack(wc).mean(),
+                   "aux": torch.zeros((), dtype=torch.float32, device=dev)}
+        return grads, metrics
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = compute_grads(params, batch)
+        params, opt_state = apply_in_place(opt, grads, opt_state, params)
+        return params, opt_state, metrics
+
+    return train_step, opt
 
 
 def make_prefill_step(cfg: ModelConfig, decode_budget: int = 0):

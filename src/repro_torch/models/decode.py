@@ -37,9 +37,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.models.model import (_head_logits, _row, check_family,
-                                      embed_inputs, layer_role, run_stack,
-                                      stack_len, torch_dtype)
+from repro_torch.models.model import (_causal, _head_logits, _row,
+                                      check_family, embed_inputs, final_norm,
+                                      layer_role, run_stack, stack_len,
+                                      torch_dtype)
 
 LONG_CONTEXT_THRESHOLD = 65536
 
@@ -84,11 +85,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return c
 
 
-def _final_norm(cfg: ModelConfig, params, h):
-    return L.apply_norm(cfg, h, {f"attn_norm_{k}": v for k, v in
-                                 params["final_norm"].items()}, "attn_norm")
-
-
 # -------------------------------------------------------------------- prefill
 
 def prefill(cfg: ModelConfig, params, batch, decode_budget: int = 0):
@@ -100,10 +96,10 @@ def prefill(cfg: ModelConfig, params, batch, decode_budget: int = 0):
     """
     _check_servable(cfg)
     h, pos = embed_inputs(cfg, params, batch)
-    causal = layer_role(cfg) in ("dense", "moe", "hybrid")
     h, _, ys = run_stack(cfg, params["layers"], h, positions=pos,
-                         causal=causal, window=cfg.sliding_window, emit=True)
-    logits = _head_logits(cfg, params, _final_norm(cfg, params, h))
+                         causal=_causal(cfg), window=cfg.sliding_window,
+                         emit=True)
+    logits = _head_logits(cfg, params, final_norm(cfg, params, h))
     cache = _build_cache(cfg, ys, h.shape[0], h.shape[1], decode_budget,
                          h.device)
     return logits, cache
@@ -190,6 +186,6 @@ def decode_step(cfg: ModelConfig, params, cache, token):
         if role != "ssm":
             x = L.apply_norm(cfg, h, p, "mlp_norm")
             h = h + L.mlp_apply(cfg, p["mlp"], x)
-    logits = _head_logits(cfg, params, _final_norm(cfg, params, h))
+    logits = _head_logits(cfg, params, final_norm(cfg, params, h))
     cache["idx"] = idx + 1
     return logits, cache

@@ -269,9 +269,21 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
 
 # -------------------------------------------------------------------- losses
 
-def softmax_xent(logits, labels):
-    """Mean cross-entropy in fp32. logits [..., V]; labels [...] int."""
+def softmax_xent(logits, labels, *, valid=None, vocab: int = None):
+    """Mean cross-entropy in fp32. logits [..., V]; labels [...] int.
+
+    ``vocab`` masks the padded vocabulary columns (``padded_vocab``);
+    ``valid`` (labels' shape) weights the positions, and the mean is over
+    its sum (at least 1)."""
     logits = logits.float()
+    if vocab is not None and vocab < logits.shape[-1]:
+        neg = torch.full(logits.shape[:-1] + (logits.shape[-1] - vocab,),
+                         NEG_INF, dtype=logits.dtype, device=logits.device)
+        logits = torch.cat([logits[..., :vocab], neg], dim=-1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return (logz - gold).mean()
+    nll = logz - gold
+    if valid is None:
+        return nll.mean()
+    w = valid.float()
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)

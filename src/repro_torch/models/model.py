@@ -14,10 +14,13 @@ slices the stack at ``d`` (the JAX package pins its static and runtime
 forms bit-exact, and ``tests/test_torch_model.py`` holds this slice
 against its runtime form).
 
-The LM families serve (``models/decode.py``): ``init_params``,
-``embed_inputs`` and ``run_stack(emit=True)``. Their SuperSFL training
-surfaces (prefix/suffix, losses, the TPGF split) come with the LM training
-slice (ROADMAP queue 1, "The LM training slice") and raise until then.
+Every family serves (the LM families through ``models/decode.py``) and
+trains through the SuperSFL surfaces below; the LM families' losses are
+next-token cross-entropies over the unpadded vocabulary, weighted by
+``batch["valid"]`` where the batch has one. With ``cfg.remat`` each layer
+of a forward that records a gradient is checkpointed (its activations are
+recomputed in the backward), the reference's ``jax.checkpoint`` of the
+scan body.
 The reference's ``_constrain_batch`` pins a sharding and is a no-op on one
 device; the port has no counterpart (sharding is ROADMAP queue 1, "Fleet
 sharding and multi-device").
@@ -39,6 +42,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -56,17 +60,6 @@ def check_family(cfg: ModelConfig) -> None:
             f"family={cfg.family!r}: the port runs the vit, dense, ssm and "
             "hybrid families only so far (ROADMAP queue 1, \"The rest of "
             "the model zoo\")")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """The SuperSFL training surfaces run the vit family only so far."""
-    check_family(cfg)
-    if cfg.family != "vit":
-        raise NotImplementedError(
-            f"family={cfg.family!r}: the port serves this family "
-            "(models/decode.py); its SuperSFL training path comes with the "
-            "LM training slice (ROADMAP queue 1, \"The LM training "
-            "slice\")")
 
 
 def layer_role(cfg: ModelConfig) -> str:
@@ -226,6 +219,17 @@ def _row(tree, i: int):
             for k, v in tree.items()}
 
 
+def _rows(tree, n: int):
+    """The ``n`` per-layer trees of a stacked tree, from one ``unbind``
+    per leaf: its backward stacks the rows' gradients once, where a
+    backward through ``n`` separate ``x[i]`` would fill and add ``n``
+    stack-sized gradients."""
+    if not isinstance(tree, dict):
+        return tree.unbind(0)
+    per = {k: _rows(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 def stack_len(stack: Params) -> int:
     leaves = tree_leaves(stack)
     return int(leaves[0].shape[0]) if leaves else 0
@@ -239,12 +243,28 @@ def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
     post-rope "k" and "v" [L, B, S, K, hd] of an attention layer, the
     final SSM state "ssm_h" [L, B, nh, hd, st] (fp32) and the conv tail
     "ssm_conv" [L, B, k-1, d_inner] of a mixer. aux is the MoE router
-    loss, 0.0 for the families the port runs."""
+    loss, 0.0 for the families the port runs.
+
+    With ``cfg.remat``, while grad mode is on and without ``emit``, each
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant): only its
+    input is kept, and every backward pass through it recomputes its
+    forward, so TPGF's two backward passes through one prefix graph each
+    recompute it."""
     role = layer_role(cfg)
     use_rope = role in ("dense", "moe", "hybrid")
+    remat = cfg.remat and not emit and torch.is_grad_enabled()
+
+    def layer(p, x):
+        return _layer(cfg, role, p, x, positions=positions, causal=causal,
+                      window=window, use_rope=use_rope)[0]
+
     per = []
-    for i in range(stack_len(stack)):
-        h, ys = _layer(cfg, role, _row(stack, i), h, positions=positions,
+    for row in _rows(stack, stack_len(stack)):
+        if remat:
+            h = checkpoint(layer, row, h, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
+        h, ys = _layer(cfg, role, row, h, positions=positions,
                        causal=causal, window=window, use_rope=use_rope,
                        emit=emit)
         if emit:
@@ -290,6 +310,16 @@ def _head_logits(cfg: ModelConfig, params: Params, h):
     return h @ params["unembed"]
 
 
+def final_norm(cfg: ModelConfig, params: Params, h):
+    """The LM families' last norm before ``unembed``."""
+    return L.apply_norm(cfg, h, {f"attn_norm_{k}": v for k, v in
+                                 params["final_norm"].items()}, "attn_norm")
+
+
+def _causal(cfg: ModelConfig) -> bool:
+    return layer_role(cfg) in ("dense", "moe", "hybrid")
+
+
 # --------------------------------------------------------- SuperSFL surfaces
 
 def _depth_slice(stack: Params, lo: int, hi: int = None) -> Params:
@@ -299,10 +329,9 @@ def _depth_slice(stack: Params, lo: int, hi: int = None) -> Params:
 def client_apply(cfg: ModelConfig, client_params: Params, batch):
     """Forward an already-split client view (stack rows ``[:d]``) ->
     smashed z."""
-    check_trainable(cfg)
     h, pos = embed_inputs(cfg, client_params, batch)
     return run_stack(cfg, client_params["layers"], h, positions=pos,
-                     window=cfg.sliding_window)
+                     causal=_causal(cfg), window=cfg.sliding_window)
 
 
 def prefix_apply(cfg: ModelConfig, params: Params, batch, d: int):
@@ -314,23 +343,42 @@ def prefix_apply(cfg: ModelConfig, params: Params, batch, d: int):
 
 
 def local_logits(cfg: ModelConfig, params: Params, z):
-    """Fault-tolerant lightweight client head on smashed data."""
-    check_trainable(cfg)
-    pooled = z.mean(dim=1)
-    return pooled @ params["local_head"] + params["local_head_bias"]
+    """Fault-tolerant lightweight client head on smashed data: vit pools
+    the tokens, the LM families predict every position."""
+    check_family(cfg)
+    if cfg.family == "vit":
+        pooled = z.mean(dim=1)
+        return pooled @ params["local_head"] + params["local_head_bias"]
+    return z @ params["local_head"]
+
+
+def _label_fields(cfg: ModelConfig, batch):
+    if cfg.family == "vit":
+        return batch["label"], None
+    return batch["labels"], batch.get("valid")
+
+
+def _xent(cfg: ModelConfig, logits, batch):
+    labels, valid = _label_fields(cfg, batch)
+    if cfg.family == "vit":
+        return L.softmax_xent(logits, labels)
+    return L.softmax_xent(logits, labels, valid=valid, vocab=cfg.vocab)
 
 
 def local_loss(cfg: ModelConfig, params: Params, z, batch):
-    return L.softmax_xent(local_logits(cfg, params, z), batch["label"])
+    return _xent(cfg, local_logits(cfg, params, z), batch)
 
 
 def server_apply(cfg: ModelConfig, server_params: Params, z, batch):
     """The server branch on an already-split view whose stack holds only
-    the suffix rows ``[d:]``."""
-    check_trainable(cfg)
+    the suffix rows ``[d:]``; the LM families end with ``final_norm``
+    and ``unembed``."""
+    check_family(cfg)
     pos = torch.arange(z.shape[1], device=z.device).expand(z.shape[:2])
     h, aux = run_stack(cfg, server_params["layers"], z, positions=pos,
-                       window=cfg.sliding_window)
+                       causal=_causal(cfg), window=cfg.sliding_window)
+    if cfg.family != "vit":
+        h = final_norm(cfg, server_params, h)
     return _head_logits(cfg, server_params, h), aux
 
 
@@ -342,7 +390,7 @@ def suffix_apply(cfg: ModelConfig, params: Params, z, batch, d: int):
 
 
 def _server_xent(cfg: ModelConfig, logits, aux, batch):
-    return L.softmax_xent(logits, batch["label"]) + cfg.router_aux_coef * aux
+    return _xent(cfg, logits, batch) + cfg.router_aux_coef * aux
 
 
 def server_split_loss(cfg: ModelConfig, server_params: Params, z, batch):

@@ -2,12 +2,16 @@
 ``models/ssm.py`` in PyTorch, cast for cast.
 
 The prefill (``ssm_apply``) runs the chunked SSD scan: with
-``cfg.use_pallas`` through the hand-written ``ssd_scan`` kernel
-(``kernels/ssd_scan/ops.py``, which adds ``D·x`` itself), else through the
-plain ``ssd_chunked`` plus ``D·x``, the reference's own route. The
-reference never calls its Pallas kernel from a model; the port does
-(departure (e) in ROADMAP.md). The single-token ``ssm_decode_step`` is
-the plain recurrence on both routes.
+``cfg.use_pallas`` and no gradient being recorded, through the
+hand-written ``ssd_scan`` kernel (``kernels/ssd_scan/ops.py``, which adds
+``D·x`` itself); otherwise through the plain ``ssd_chunked`` plus ``D·x``,
+the reference's own route. The reference never calls its Pallas kernel
+from a model; the port does when it serves (departure (e) in ROADMAP.md).
+Training records a gradient, and the kernel has none (nor has the
+reference's), so a training forward takes ``ssd_chunked`` under autograd,
+as the reference's training does; the rule reads only the grad mode and
+the inputs, never the device or a build. The single-token
+``ssm_decode_step`` is the plain recurrence on both routes.
 
 Casts follow the reference: the projections, the causal conv, ``silu``
 and ``dt = softplus(x·w_dt + dt_bias)`` run in the parameter dtype (bf16
@@ -81,11 +85,14 @@ def ssm_apply(cfg: ModelConfig, p, x_in, *, chunk: int = DEFAULT_CHUNK,
     A = -torch.exp(p["A_log"].float())
     Bsz, S = x_in.shape[:2]
     xh = xs.reshape(Bsz, S, nh, hd)
-    scan_in = (xh.float(), dt.float(), A, B.float(), C.float())
-    if cfg.use_pallas:
-        y, h_final = SS.ssd_scan(*scan_in, p["D"].float())
+    scan_in = (xh.float(), dt.float(), A, B.float(), C.float(),
+               p["D"].float())
+    recording = torch.is_grad_enabled() and any(t.requires_grad
+                                                for t in scan_in)
+    if cfg.use_pallas and not recording:
+        y, h_final = SS.ssd_scan(*scan_in)
     else:
-        y, h_final = ssd_chunked(*scan_in, chunk=chunk)
+        y, h_final = ssd_chunked(*scan_in[:5], chunk=chunk)
         y = y + xh.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(Bsz, S, nh * hd).to(x_in.dtype)
     y = L.rmsnorm(y, p["gate_norm_scale"]) * L.silu(z)

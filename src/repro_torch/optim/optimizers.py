@@ -3,7 +3,9 @@
 
 API mirrors optax: ``opt.init(params) -> state``,
 ``opt.update(grads, state, params) -> (updates, state)``, then
-``apply_updates``. All arithmetic is fp32.
+``apply_updates``. The optimizers' arithmetic is fp32, except plain
+``sgd``, which scales a gradient in its own dtype, as the reference's
+``-lr * g`` does (a weak-typed scalar takes a bf16 gradient's dtype).
 
 State-shape contract (the federated strategies persist the shared server
 branch's moments across rounds in ``TrainState.opt_state``): an optimizer
@@ -62,13 +64,31 @@ def map_moments(fn: Callable[[Any], Any], state, params):
             for k, v in state.items()}
 
 
+def _as_dtype(dtype) -> torch.dtype:
+    """A torch dtype, or its name as the configs spell it."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    names = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if dtype not in names:
+        raise ValueError(f"moment dtype {dtype!r}: expected one of "
+                         f"{sorted(names)} or a torch dtype")
+    return names[dtype]
+
+
 def sgd(lr: float) -> Optimizer:
-    """Plain SGD: ``p <- p - lr * g``. Stateless (state is ``()``)."""
+    """Plain SGD: ``p <- p - lr * g``. Stateless (state is ``()``). The
+    step ``-lr`` is rounded to the gradient's dtype first, as the
+    reference's weak-typed scalar is (a Python float would multiply a
+    bf16 gradient at full precision)."""
     def init(params):
         return ()
 
+    def step(g):
+        # -lr rounded on the host; exact in the kernel's fp32 arithmetic
+        return g * float(torch.tensor(-lr, dtype=g.dtype))
+
     def update(grads, state, params=None):
-        return tree_map(lambda g: -lr * g, grads), state
+        return tree_map(step, grads), state
 
     return Optimizer(init, update)
 
@@ -92,8 +112,7 @@ def sgd_momentum(lr: float, momentum: float = 0.9) -> Optimizer:
 
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.0,
-          moment_dtype: torch.dtype = torch.float32) -> Optimizer:
+          weight_decay: float = 0.0, moment_dtype=torch.float32) -> Optimizer:
     """Decoupled-weight-decay Adam (Loshchilov & Hutter):
 
         t <- t + 1
@@ -102,8 +121,13 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         p <- p - lr * [ (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)
                         + weight_decay * p ]
 
-    ``t`` is an int32 bookkeeping counter, not a moment entry.
+    ``moment_dtype`` is a torch dtype or a config's name for one
+    (``cfg.adam_moment_dtype``: "float32" or "bfloat16"); the arithmetic
+    is fp32 whatever the moments' or the parameters' dtype. ``t`` is an
+    int32 bookkeeping counter, not a moment entry.
     """
+    moment_dtype = _as_dtype(moment_dtype)
+
     def init(params):
         z = lambda p: torch.zeros_like(p, dtype=moment_dtype)
         leaves = tree_leaves(params)

@@ -13,7 +13,6 @@ the writer's uninterrupted round 2 at the parity limits (loss 1e-5,
 params, heads and moments 1e-4) and its streams exactly.
 """
 import json
-import os
 
 import numpy as np
 import pytest
@@ -135,18 +134,34 @@ def test_manifest_validation_errors(tmp_path, damage, match):
         load_checkpoint(path)
 
 
-@pytest.mark.parametrize("where", ["write", "read"])
-def test_bf16_leaves_are_refused_naming_the_leaf(tmp_path, where):
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_bf16_checkpoints_cross_between_the_packages(tmp_path, writer):
+    """A bf16 leaf (beside an fp32 one) written by either package reads
+    back in the other bit for bit: raw 2-byte words in the npz,
+    ``"bfloat16"`` in the manifest."""
     path = str(tmp_path / "ck")
-    if where == "write":
-        tree = {"params": {"w": torch.ones(3, dtype=torch.bfloat16)}}
-        with pytest.raises(ValueError, match="params/w.*LM training slice"):
-            save_checkpoint(path, tree)
-        assert not os.path.exists(path + ".json")
+    g = torch.Generator().manual_seed(5)
+    w = torch.randn((3, 5), generator=g).bfloat16()
+    w[0, :3] = torch.tensor([float("inf"), -0.0, 2.0 ** -130])
+    b = torch.randn(4, generator=g)
+    words = w.view(torch.int16).numpy()
+    if writer == "port":
+        save_checkpoint(path, {"params": {"w": w, "b": b}}, step=3)
+        tree, manifest = j_load(path)
+        assert np.asarray(tree["params"]["w"]).view(np.int16).tolist() \
+            == words.tolist()
     else:
-        j_save(path, {"params": {"w": jnp.ones(3, jnp.bfloat16)}})
-        with pytest.raises(ValueError, match="params/w.*LM training slice"):
-            load_checkpoint(path)
+        j_save(path, {"params": {"w": jnp.asarray(words).view(jnp.bfloat16),
+                                 "b": jnp.asarray(b.numpy())}}, step=3)
+        tree, manifest = load_checkpoint(path)
+        got = tree["params"]["w"]
+        assert got.dtype == torch.bfloat16 and got.shape == (3, 5)
+        assert torch.equal(got.view(torch.int16), w.view(torch.int16))
+    assert manifest["dtypes"] == {"params/w": "bfloat16",
+                                  "params/b": "float32"}
+    assert manifest["step"] == 3 and manifest["shapes"]["params/w"] == [3, 5]
+    np.testing.assert_array_equal(np.asarray(tree["params"]["b"]),
+                                  b.numpy())
 
 
 # ------------------------------------------------------------ the engine

@@ -250,15 +250,29 @@ def test_bridge_refuses_a_tree_that_does_not_match():
     assert np_p["embed"].any()
 
 
-def test_training_surfaces_are_not_ported_yet():
+def test_training_surfaces_train_and_the_engine_points_at_the_step():
+    """The LM training surfaces run (the smashed data, both heads' losses
+    and the TPGF gradients; ``tests/test_torch_lm_train.py`` holds them to
+    the reference); the federated ``Engine`` still refuses an LM config,
+    as the reference's cannot run one, and names the train step; the moe
+    family is not ported."""
     cfg = TB.get_reduced("llama3_2_3b")
-    with pytest.raises(NotImplementedError, match="LM training slice"):
+    with pytest.raises(NotImplementedError, match="make_train_step"):
         Engine(cfg, 3, "ssfl", device="cpu")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="LM training slice"):
-        TM.prefix_apply(cfg, params, batch, 1)
+    toks = torch.arange(8).reshape(2, 4) % cfg.vocab
+    batch = {"tokens": toks, "labels": (toks + 1) % cfg.vocab}
+    z, _ = TM.prefix_apply(cfg, params, batch, 1)
+    assert z.shape == (2, 4, cfg.d_model)
+    for loss in (TM.local_loss(cfg, params, z, batch),
+                 TM.server_loss(cfg, params, z, batch, 1),
+                 TM.full_loss(cfg, params, batch)):
+        assert loss.shape == () and bool(torch.isfinite(loss))
+    from repro_torch.core.tpgf import tpgf_grads
+    out = tpgf_grads(cfg, params, batch, 1)
+    assert sorted(out.grads) == sorted(params)
+    assert out.grads["embed"].abs().sum() > 0
     with pytest.raises(NotImplementedError, match="rest of the model zoo"):
         TM.init_params(TB.get_reduced("llama3_2_3b").replace(family="moe"),
                        torch.Generator(), device="cpu")

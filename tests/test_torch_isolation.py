@@ -39,7 +39,8 @@ def test_port_sources_exist():
                  "kernels/flash_attention/ops.py", "kernels/ssd_scan/ops.py",
                  "federated/engine.py", "bridge.py",
                  "federated/strategies/splitfed.py",
-                 "federated/strategies/fedavg.py", "checkpoint/ckpt.py"):
+                 "federated/strategies/fedavg.py", "checkpoint/ckpt.py",
+                 "launch/steps.py", "launch/train.py"):
         assert want in names, want
 
 

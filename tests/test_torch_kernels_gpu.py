@@ -401,3 +401,69 @@ def test_ssd_scan_kernel_refuses_grad(cuda):
     with torch.no_grad():
         O.ssd_scan(x, dt, A, B, C, D)
     assert O.ssd_scan.launches == before + 1
+
+
+def _mamba2_client_shapes():
+    """The distinct leaf shapes of full-width Mamba2-2.7B's client view at
+    its split depth (on the meta device)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.supernet import split_params
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("mamba2_2_7b")
+    client = split_params(cfg, init_params(cfg, None, device="meta"),
+                          cfg.resolved_split_depth)[0]
+    return sorted({tuple(x.shape) for x in tree_leaves(client)})
+
+
+@pytest.mark.parametrize("shape", _mamba2_client_shapes(), ids=str)
+def test_fuse_kernel_bf16_at_mamba2_client_leaf_shapes(cuda, shape):
+    """Eq. 4 on bf16 client gradients, as the LM training path calls it
+    (w and the clip scale on the device): within one bf16 ulp of the
+    plain version."""
+    from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    g = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    b = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    w = torch.tensor(0.2477, device=cuda)
+    one = torch.ones((), device=cuda)
+    before = O.fuse_leaf.launches
+    got = O.fuse_leaf(a, b, w, one)
+    assert O.fuse_leaf.launches == before + 1 and got.dtype == torch.bfloat16
+    want = R.fuse(a, b, w, one)
+
+    def ordered(t):      # bf16 bits as integers in the values' order
+        bits = t.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    assert int((ordered(got) - ordered(want)).abs().max()) <= 1
+
+
+def test_ssm_train_step_on_the_card_launches_fuse_and_no_scan(cuda):
+    """A training step of the reduced ssm config with ``use_pallas=True``:
+    Eq. 4 runs the ``fuse`` kernel once per client leaf and microbatch;
+    the scan records a gradient, so ``ssd_scan`` never launches."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.core.supernet import split_params
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.tpgf_fusion.ops import fuse_leaf
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves
+    cfg = get_reduced("mamba2_2_7b").replace(use_pallas=True,
+                                             microbatches=2)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    n_client = len(tree_leaves(split_params(
+        cfg, params, cfg.resolved_split_depth)[0]))
+    step, opt = make_train_step(cfg)
+    state = opt.init(params)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 32), generator=g,
+                              device=cuda) for k in ("tokens", "labels")}
+    fuse0, scan0 = fuse_leaf.launches, ssd_scan.launches
+    params, state, metrics = step(params, state, batch)
+    torch.cuda.synchronize()
+    assert fuse_leaf.launches - fuse0 == 2 * n_client
+    assert ssd_scan.launches == scan0
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

@@ -412,15 +412,27 @@ def test_full_size_parameter_count(arch, fields, count):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_is_not_ported_for_these_families(arch):
-    cfg = TB.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="LM training slice"):
+def test_a_train_step_trains_these_families(arch):
+    """``make_train_step`` takes a step of each family (held to the
+    reference in ``tests/test_torch_lm_train.py``); the federated
+    ``Engine`` still refuses an LM config and names the train step."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import sgd
+    cfg = TB.get_reduced(arch).replace(microbatches=B)
+    with pytest.raises(NotImplementedError, match="make_train_step"):
         Engine(cfg, 3, "ssfl", device="cpu")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="LM training slice"):
-        TM.prefix_apply(cfg, params, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.long)}, 1)
+    before = {p: x.clone() for p, x in tree_flatten_with_path(params)}
+    step, opt = make_train_step(cfg, sgd(0.5))
+    toks = torch.as_tensor(_tokens(9))
+    params, _, metrics = step(params, opt.init(params),
+                              {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert 0.0 < float(metrics["w_client"]) < 1.0
+    moved = [p for p, x in tree_flatten_with_path(params)
+             if not torch.equal(x, before[p])]
+    assert ("embed",) in moved and ("unembed",) in moved
 
 
 @pytest.mark.parametrize("arch", ARCHS)
