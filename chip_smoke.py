@@ -52,13 +52,29 @@ Phases, one JSON line each (plus the card's name and power limit as
      losses, no kernel launch (none lies on this path), the global head
      evaluated, the server slot named; one profiled round of ``fedavg``
      and of ``fedadam``;
-  9. resume — ``ssfl`` with ``adamw`` (lr 0.01, kernels on), ``sfl`` with
-     ``adamw`` and ``fedadam``: 1 round, ``save``, a fresh engine,
-     ``restore``, 1 more round must equal 2 uninterrupted rounds bit for
-     bit (params, local heads, ``opt_state``); prints the checkpoint's
-     size and its save and restore times (a temporary directory, removed
-     afterwards);
- 10. serve path — Llama-3.2-3B at full width in bf16 (28 layers, random
+  9. scenario path — the main path's fleet under the scenario strategies,
+     two rounds each with the kernels on, then off (within 1e-4, nothing
+     launched): ``unstable`` at its defaults (Markov participation,
+     staleness-weighted Eq. 6/8; ``fuse`` and ``aggregate`` must launch;
+     each round's participants and staleness printed),
+     ``async_buffered`` with a capacity-3 FedBuff buffer, ``"count"``
+     flushes and a ``fedadam`` server at lr 1e-3 (``fuse`` and
+     ``aggregate``; at least one flush; the buffer's bytes printed) and
+     ``hasfl`` on the width ladder with ``cross_tier="fused"`` and a
+     budget that leaves a mixed-width cohort (``fuse``, ``aggregate`` and
+     ``tier_sum``; every client's tuned depth, batch and width printed
+     each round); both heads evaluate, peak memory, a profiled round each
+     (its idle share against the same round run unprofiled on a copy of
+     the engine); their launches get a line of their own;
+ 10. resume — ``ssfl`` with ``adamw`` (lr 0.01, kernels on), ``sfl`` with
+     ``adamw``, ``fedadam``, ``unstable`` and ``async_buffered`` (the
+     scenario path's buffer and ``fedadam`` server; the save lands
+     mid-fill): 1 round, ``save``, a fresh engine, ``restore``, 1 more
+     round must equal 2 uninterrupted rounds bit for bit (params, local
+     heads, ``opt_state``, the participation chain); prints the
+     checkpoint's size and its save and restore times (a temporary
+     directory, removed afterwards);
+ 11. serve path — Llama-3.2-3B at full width in bf16 (28 layers, random
      weights drawn on the card from a seed), the ViT engines freed first:
      4 prompts of 2,048 tokens from ``synthetic_lm_batches`` prefilled
      through ``launch.steps.make_prefill_step`` (``use_pallas=True``:
@@ -70,17 +86,17 @@ Phases, one JSON line each (plus the card's name and power limit as
      ``SERVE_LOGIT_TOL`` of the largest logit). Prints prefill and decode
      times and rates, peak memory, the weights' init time, one profiled
      prefill and one profiled decode step;
- 11. ssm serve path — the same contract for Mamba2-2.7B at full width and
+ 12. ssm serve path — the same contract for Mamba2-2.7B at full width and
      depth in bf16 (64 layers, d_model 2560, 80 SSM heads of 64, state
      128), the Llama weights freed first: ``ssd_scan`` must launch 64
      times a prefill and ``flash_attention`` never. Its bf16 agreements
      are held to ``BF16_LOGIT_TOL["ssm"]``, and the same three
      agreements in fp32 at full size to ``FP32_LOGIT_TOL``;
- 12. hybrid serve path — the same for Hymba-1.5B (32 layers, d_model
+ 13. hybrid serve path — the same for Hymba-1.5B (32 layers, d_model
      1600, 25 query and 5 KV heads of 64, 50 SSM heads of 64, state 16):
      ``flash_attention`` and ``ssd_scan`` must each launch 32 times a
      prefill; its launches get a line of their own;
- 13. lm train path — Mamba2-2.7B at full width and depth trained by
+ 14. lm train path — Mamba2-2.7B at full width and depth trained by
      ``launch.steps.make_train_step`` with its config (bf16, remat, 4
      microbatches, AdamW with fp32 moments), 3 steps of 8 × 512 tokens
      from ``synthetic_lm_batches``, the serving weights freed first, with
@@ -93,13 +109,14 @@ Phases, one JSON line each (plus the card's name and power limit as
      weights: step-1 losses bit for bit, later ones within
      ``TRAIN_LOSS_RTOL``. Step wall, tokens/s, peak memory, a profiled
      step;
- 14. dense train path — Llama-3.2-3B at full width and depth trained
+ 15. dense train path — Llama-3.2-3B at full width and depth trained
      through ``launch/train.py``'s config and loop (one microbatch,
      bf16, remat, ``adamw(1e-3)``) with the kernels off, 3 steps of
      8 × 512: finite losses, no kernel launch, the same figures;
- 15. the ``kernels`` summary line; each kernel's ``launches`` come from
-     the path named beside it (counts set to 0 just before that path);
-     the two training paths' launches get a line of their own.
+ 16. the ``kernels`` summary line; each kernel's ``launches`` come from
+     the path named beside it (counts set to 0 just before that path),
+     and ``also_on`` lists their launches on the scenario paths; the two
+     training paths' launches get a line of their own.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it; so does a machine without a CUDA device, and a
@@ -107,6 +124,7 @@ directory that holds this script without the port beside it.
 """
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -737,12 +755,19 @@ TRAIN_ARGS = dict(strategy="ssfl", seed=0, lr=0.05, local_steps=2,
 
 
 def _engine(cfg, **kw):
+    """An engine on the training paths' fleet; ``strategy`` is a name or a
+    factory (called once per engine: strategies keep per-run state)."""
     from repro_torch.federated import Engine
     args = dict(TRAIN_ARGS, **kw)
-    return Engine(cfg, 8, args.pop("strategy"), device="cuda", **args)
+    strategy = args.pop("strategy")
+    if callable(strategy):
+        strategy = strategy()
+    return Engine(cfg, 8, strategy, device="cuda", **args)
 
 
-def _run(cfg, label, **kw):
+def _run(cfg, label, describe=None, **kw):
+    """``ROUNDS`` rounds, each a ``round`` line (``describe(engine)`` adds
+    its entries to it)."""
     import torch
     eng = _engine(cfg, **kw)
     recs = []
@@ -754,7 +779,8 @@ def _run(cfg, label, **kw):
         rec = {**rec, "wall_s": time.perf_counter() - t0}
         if not math.isfinite(rec["loss"]):
             die(f"{label}: round {rec['round']} loss is not finite")
-        emit({"phase": "round", "run": label, **rec})
+        emit({"phase": "round", "run": label, **rec,
+              **(describe(eng) if describe else {})})
         recs.append(rec)
     return eng, recs
 
@@ -779,13 +805,18 @@ def _counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def phase_path(name, must_launch, forbidden=(), **engine_kw):
+def phase_path(name, must_launch, forbidden=(), describe=None,
+               same_round=False, **engine_kw):
     """Train the fleet two rounds with the kernels on, every launch count
     set to 0 just before and read just after (each kernel of
     ``must_launch`` must have launched, none of ``forbidden``); then the
     same run with the kernels off, which must launch nothing and agree
-    within 1e-4; then a profiled round. Returns (launches, the kernel-on
-    engine)."""
+    within 1e-4; then a profiled round. ``describe(engine)`` adds entries
+    to each round's line. ``same_round``: the profiled round's idle share
+    is taken against the wall of the SAME round run unprofiled on a copy
+    of the engine (a participation process gives every round other
+    clients, so the last round's wall does not measure it). Returns
+    (launches, the kernel-on engine)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core.supernet import split_params
@@ -795,7 +826,7 @@ def phase_path(name, must_launch, forbidden=(), **engine_kw):
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     eng, recs = _run(cfg.replace(use_pallas=True), f"{name}/kernels",
-                     **engine_kw)
+                     describe, **engine_kw)
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     n_clients = eng.state.n_clients
@@ -829,7 +860,7 @@ def phase_path(name, must_launch, forbidden=(), **engine_kw):
 
     # the same run through the plain versions must agree
     _zero_counts()
-    plain, precs = _run(cfg, f"{name}/plain", **engine_kw)
+    plain, precs = _run(cfg, f"{name}/plain", describe, **engine_kw)
     if any(_counts().values()):
         die(f"{name}: use_pallas=False still launched a kernel: "
             f"{_counts()}")
@@ -846,7 +877,17 @@ def phase_path(name, must_launch, forbidden=(), **engine_kw):
             f"params {dparam}")
     del plain
     torch.cuda.empty_cache()
-    _profile(eng.run_round, recs[-1]["wall_s"], name)
+    wall_s = recs[-1]["wall_s"]
+    if same_round:
+        twin = copy.deepcopy(eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twin.run_round()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        del twin
+        torch.cuda.empty_cache()
+    _profile(eng.run_round, wall_s, name)
     return launches, eng
 
 
@@ -909,11 +950,39 @@ def phase_clip_path(cfg, params, d):
 
 # ------------------------------------------------------ baselines, resume
 FEDAVG_FAMILY = ("fedavg", "fedavgm", "fedadam", "fedyogi")
+# the scenario path's FedBuff buffer: seed 0's Markov chain over the
+# 8-client fleet trains 4 depth cohorts in round 1 and 2 in round 2, so a
+# capacity of 3 flushes once in each round, and a checkpoint taken after
+# round 1 holds one entry (host numpy draws: found on the CPU)
+ASYNC_CAPACITY = 3
+# FedAdam's first steps move every coordinate by about its lr; 1e-3 stays
+# under the ViT weights' init scale (0.02), where 0.03 (the JAX package's
+# reduced-config sweep) sends the full-width loss from 2.07 to 4.61
+ASYNC_SERVER_LR = 1e-3
+# hasfl's co-tuning budget: at full width this leaves a depth-1 cohort
+# of width tiers 0.75 and 1.0 and batches 4-16 (co_tune is host numpy over
+# parameter counts: found on the CPU, checked again below by tier_sum)
+HASFL_BUDGET = 0.1
+
+
+def _async_fedadam():
+    from repro_torch.federated.strategies import BufferedAsync
+    return BufferedAsync(capacity=ASYNC_CAPACITY, server_opt="fedadam",
+                         server_lr=ASYNC_SERVER_LR)
+
+
+def _hasfl_ladder():
+    from repro_torch.federated.strategies import HASFL
+    return HASFL(width_tiers=LADDER, time_budget_factor=HASFL_BUDGET)
+
+
 # (label, engine settings): the main path's fleet, kernels on
 RESUME_CASES = (("ssfl-adamw", dict(optimizer="adamw", lr=0.01)),
                 ("sfl-adamw", dict(strategy="sfl", optimizer="adamw",
                                    lr=0.01)),
-                ("fedadam", dict(strategy="fedadam")))
+                ("fedadam", dict(strategy="fedadam")),
+                ("unstable", dict(strategy="unstable")),
+                ("async_buffered-fedadam", dict(strategy=_async_fedadam)))
 
 
 def phase_fedavg_path():
@@ -945,6 +1014,68 @@ def phase_fedavg_path():
         torch.cuda.empty_cache()
 
 
+def _staleness_line(eng):
+    # every client of these fleets is feasible, so the clients that
+    # trained this round are the participants: staleness 0
+    st = eng._staleness
+    return {"participants": [int(i) for i in (st == 0).nonzero()[0]],
+            "staleness": st.tolist()}
+
+
+def _buffer_line(eng):
+    from repro_torch.federated import buffer as BUF
+    buf = eng.state.opt_state.get(BUF.SLOT)
+    return {"flushes": eng.strategy.flushes,
+            "buffer_fill": BUF.fill_count(buf) if buf else 0}
+
+
+def _tuned_line(eng):
+    fl = eng.state.fleet
+    return {"tuned_depth_batch_width": [
+        [int(d), int(b), float(w)]
+        for d, b, w in zip(fl.depths, eng.strategy._bs, fl.widths)]}
+
+
+def phase_scenario_path():
+    """The scenario strategies on the main path's fleet (``phase_path``
+    each): ``unstable``, ``async_buffered`` (FedBuff, ``fedadam`` server)
+    and ``hasfl`` on the width ladder, fused. Returns their launches."""
+    import torch
+    from repro_torch.federated import buffer as BUF
+    from repro_torch.tree import tree_leaves
+    launches = {}
+    off_path = ("sumsq", "flash_attention", "ssd_scan")
+    for name, must, describe, kw in (
+            ("unstable", ("fuse", "aggregate"), _staleness_line,
+             dict(strategy="unstable")),
+            ("async_buffered", ("fuse", "aggregate"), _buffer_line,
+             dict(strategy=_async_fedadam)),
+            ("hasfl", ("fuse", "aggregate", "tier_sum"), _tuned_line,
+             dict(strategy=_hasfl_ladder, cross_tier="fused"))):
+        path = f"scenario_path_{name}"
+        forbidden = off_path if "tier_sum" in must \
+            else off_path + ("tier_sum",)
+        launches[path], eng = phase_path(path, must, forbidden, describe,
+                                         same_round=True, **kw)
+        if name == "async_buffered":
+            buf = eng.state.opt_state[BUF.SLOT]
+            line = {"phase": f"{path}_buffer",
+                    "capacity": BUF.capacity_of(buf),
+                    "flushes": eng.strategy.flushes,
+                    "buffer_bytes": sum(x.numel() * x.element_size()
+                                        for x in tree_leaves(buf)),
+                    "fedopt_bytes": sum(
+                        x.numel() * x.element_size() for x in tree_leaves(
+                            eng.state.opt_state.get("server_fedopt", ())))}
+            emit(line)
+            if eng.strategy.flushes == 0:
+                die(f"{path}: the buffer never flushed ({line})")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _first_difference(a, b):
     """The path of the first leaf where two tensor trees differ in any
     bit (or in shape or dtype), else None."""
@@ -962,8 +1093,9 @@ def _first_difference(a, b):
 def phase_resume():
     """For each of ``RESUME_CASES``: 1 round, ``save``, a fresh engine,
     ``restore``, 1 more round must equal 2 uninterrupted rounds bit for
-    bit (params, local heads, opt_state). The checkpoint goes to a
-    temporary directory that is removed afterwards."""
+    bit (params, local heads, opt_state, the participation process's
+    state). The checkpoint goes to a temporary directory that is removed
+    afterwards."""
     import tempfile
     import torch
     from repro_torch.configs.base import get_config
@@ -993,6 +1125,9 @@ def phase_resume():
         diff = {part: _first_difference(getattr(a.state, part),
                                         getattr(c.state, part))
                 for part in ("params", "local_heads", "opt_state")}
+        if a.participation is not None and \
+                a.participation.get_state() != c.participation.get_state():
+            diff["participation"] = "the arrival process's state"
         emit({"phase": "resume", "case": label, "round": rec["round"],
               "loss_resumed": rec["loss"],
               "loss_uninterrupted": a.history[-1]["loss"],
@@ -1618,6 +1753,7 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     phase_fedavg_path()
+    scenario = phase_scenario_path()
     phase_resume()
     gc.collect()                      # the ViT engines go before the LM
     torch.cuda.empty_cache()
@@ -1646,13 +1782,16 @@ def main() -> None:
     for row in rows:
         row["path"] = carried_by[row["name"]]
         row["launches"] = launches[row["path"]][row["name"]]
+        row["also_on"] = {path: n[row["name"]] for path, n in scenario.items()
+                          if n[row["name"]]}
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "also_on")
     # the hybrid path runs both serving kernels, and the baselines run
     # aggregate; their launches stand here
     emit({"hybrid_serve_path_launches": launches["hybrid_serve_path"]})
     emit({"baseline_path_launches": baseline})
+    emit({"scenario_path_launches": scenario})
     emit({"train_path_launches": train_launches})
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     # hand the card's memory back before the result, so that the exit

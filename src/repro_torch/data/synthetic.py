@@ -74,6 +74,12 @@ class ClientData:
     images: np.ndarray
     labels: np.ndarray
 
+    def sample_batch(self, batch_size: int, rng: np.random.Generator):
+        """One host batch, drawn as ``DeviceData.sample_indices`` draws one
+        (client, step): the same ``integers`` call."""
+        idx = rng.integers(0, len(self.labels), batch_size)
+        return {"images": self.images[idx], "label": self.labels[idx]}
+
 
 class DeviceData:
     """Every client shard concatenated into ONE flat ``images``/``labels``

@@ -1,5 +1,6 @@
 from repro_torch.federated.engine import (  # noqa: F401
     Engine, EngineBuilder, predict, resolve_device)
+from repro_torch.federated.round import FederatedTrainer  # noqa: F401
 from repro_torch.federated.simulator import Fleet, make_fleet  # noqa: F401
 from repro_torch.federated.state import (  # noqa: F401
     TrainState, init_train_state)

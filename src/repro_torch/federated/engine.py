@@ -27,7 +27,8 @@ for draw:
   seed + 1      — per-client local heads phi_i (``torch.Generator``)
   seed + 7      — server availability (``avail_model``)
   seed + 13     — per-round client sampling (``sample_frac``)
-  seed + 21     — client participation (the strategy's arrival process)
+  seed + 21     — client participation (the strategy's arrival process,
+                  e.g. ``unstable``'s Markov chain)
 
 Width supernet: ``width_tiers=(0.25, 0.5, 0.75, 1.0)`` snaps each
 client's memory budget onto the ladder (``allocate_widths``) into
@@ -36,8 +37,9 @@ meet on the shared server branch: ``"fused"`` (the paper's path, ONE
 ``fuse_tiers`` update from one snapshot) or ``"chained"`` (each tier
 continues from the previous one's server branch, the comparator).
 
-``save`` persists the position of every stream (and the staleness and
-server-update counters, and the width tiers) in the checkpoint manifest;
+``save`` persists the position of every stream (with the Markov on/off
+state, the staleness and server-update counters, and the width tiers)
+in the checkpoint manifest;
 ``restore`` rewinds them, so a resumed run is bit-identical to an
 uninterrupted one. The manifest is the reference's: a checkpoint written
 by either package restores in the other.
@@ -47,6 +49,7 @@ queue item: ``mesh=`` (fleet sharding), ``sanitize=True``.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Dict, List, Union
 
 import numpy as np
@@ -118,8 +121,7 @@ class Engine:
         if width_tiers is not None:
             fleet.widths = AL.allocate_widths(
                 [p.mem_gb for p in fleet.profiles], width_tiers)
-        self.strategy.prepare_fleet(cfg, fleet,
-                                    device_model=self.accountant.dm)
+        self._call_prepare_fleet(cfg, fleet)
         self.avail_model: ArrivalProcess = (
             availability if isinstance(availability, ArrivalProcess)
             else AvailabilityModel(availability, seed=seed + 7))
@@ -135,8 +137,21 @@ class Engine:
             cfg, n_clients, seed=seed, fleet=fleet, device=self.device)
         self._staleness = np.zeros(n_clients, np.int64)
         self._server_updates = 0    # rounds in which any client had a server
-        self._server_opt_ok = None  # see strategies.base.valid_opt_state
+        # shape-check caches of the strategies' opt_state slots, reset by
+        # restore: the server moments (strategies.base.valid_opt_state),
+        # async_buffered's flush moments and its update buffer
+        self._server_opt_ok = self._fedopt_ok = self._buffer_ok = None
         self.history: List[Dict] = []
+
+    def _call_prepare_fleet(self, cfg, fleet) -> None:
+        """Pass ``device_model`` only to a hook that accepts it, so a
+        strategy written against the two-argument ``prepare_fleet(cfg,
+        fleet)`` protocol runs unchanged."""
+        if _takes(self.strategy.prepare_fleet, "device_model"):
+            self.strategy.prepare_fleet(cfg, fleet,
+                                        device_model=self.accountant.dm)
+        else:
+            self.strategy.prepare_fleet(cfg, fleet)
 
     @classmethod
     def builder(cls, cfg: ModelConfig) -> "EngineBuilder":
@@ -153,6 +168,7 @@ class Engine:
         avail = self.avail_model.draw(state.fleet.n_clients)
         ctx = RoundContext(avail=avail,
                            participants=self._draw_participants(),
+                           batch_fn=self._stack_batches,
                            sample_indices=self._sample_indices,
                            staleness=self._staleness.copy())
         ws = strat.init_round(self, ctx)
@@ -191,6 +207,21 @@ class Engine:
             mask &= self.participation.draw(n)
         return mask
 
+    def _stack_batches(self, ids, batch_size: int = None):
+        """The legacy host path: one batch per id, drawn on the host from
+        ``state.rng`` in id order and stacked on the device (images
+        [len(ids), B, H, W, 3] fp32, labels [len(ids), B] int64). It draws
+        what one step of ``_sample_indices`` would, so a strategy uses
+        one path or the other per cohort, never both."""
+        bs = self.batch_size if batch_size is None else batch_size
+        batches = [self.data["clients"][i].sample_batch(bs, self.state.rng)
+                   for i in ids]
+        return {"images": torch.as_tensor(
+                    np.stack([b["images"] for b in batches])).to(self.device),
+                "label": torch.as_tensor(
+                    np.stack([b["label"] for b in batches]).astype(np.int64)
+                ).to(self.device)}
+
     def _sample_indices(self, ids, steps: int, batch_size: int = None):
         """[steps, len(ids), B] flat-dataset indices from ``state.rng``."""
         bs = self.batch_size if batch_size is None else batch_size
@@ -201,11 +232,16 @@ class Engine:
         """Method-independent cost model over one cohort (host arithmetic
         over profile scalars); returns the server busy-time contribution."""
         dm = self.accountant.dm
-        n_tok = self.tokens_per_batch()
+        # a co-tuning strategy reports its cohort's per-step tokens
+        n_tok = res.tokens_per_batch or self.tokens_per_batch()
         cflops = MET.dense_train_flops(res.client_params, n_tok) \
             * self.local_steps
-        cost = {av: self.strategy.comm_cost(self, d, av, ids)
-                for av in (True, False)}
+        if _takes(self.strategy.comm_cost, "ids"):
+            cost = {av: self.strategy.comm_cost(self, d, av, ids=ids)
+                    for av in (True, False)}
+        else:   # the three-argument protocol: shared scalars
+            cost = {av: self.strategy.comm_cost(self, d, av)
+                    for av in (True, False)}
 
         def pick(v, j):
             a = np.asarray(v).reshape(-1)   # per-id array or a shared scalar
@@ -332,7 +368,7 @@ class Engine:
         the same (cfg, n_clients, strategy, optimizer) shape."""
         self.state.restore(path)
         # the adopted opt_state is re-validated by its owners on next use
-        self._server_opt_ok = None
+        self._server_opt_ok = self._fedopt_ok = self._buffer_ok = None
         streams = self.state.last_restore_meta.get("engine_streams")
         if streams:
             self.avail_model.set_state(streams["avail"])
@@ -346,6 +382,15 @@ class Engine:
                     and "participation" in streams:
                 self.participation.set_state(streams["participation"])
         return self
+
+
+def _takes(hook, name: str) -> bool:
+    """Whether ``hook`` accepts the keyword ``name`` (or ``**kwargs``):
+    the probe that keeps strategies written against the reference's older
+    hook signatures running."""
+    params = inspect.signature(hook).parameters
+    return name in params or any(p.kind == p.VAR_KEYWORD
+                                 for p in params.values())
 
 
 class EngineBuilder:

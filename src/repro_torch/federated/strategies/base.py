@@ -13,10 +13,11 @@ method-specific pieces:
   aggregate    — produce the next global params + the round's loss scalar
   comm_cost    — per-client bytes and message counts for the round
 
-The port registers ``ssfl``, the SplitFed baselines ``sfl``/``dfl``
-(``splitfed.py``) and the FedAvg family ``fedavg``/``fedavgm``/
-``fedadam``/``fedyogi`` (``fedavg.py``); the reference's scenario
-strategies raise ``NotImplementedError`` naming their ROADMAP queue item.
+The port registers every strategy of the reference: ``ssfl``, the
+SplitFed baselines ``sfl``/``dfl`` (``splitfed.py``), the FedAvg family
+``fedavg``/``fedavgm``/``fedadam``/``fedyogi`` (``fedavg.py``) and the
+scenario strategies ``unstable`` (``unstable.py``), ``async_buffered``
+(``async_buffered.py``) and ``hasfl`` (``hasfl.py``).
 """
 from __future__ import annotations
 
@@ -40,12 +41,17 @@ class RoundContext:
     avail          — [N] bool, server reachable this round
     participants   — [N] bool, client showed up (``sample_frac`` draw ∩
                      the participation process; all-True without them)
+    batch_fn       — (ids, batch_size=None) -> one stacked host-drawn
+                     batch per id (the legacy host path; it draws from
+                     the same stream as ``sample_indices``, so a strategy
+                     uses one or the other)
     sample_indices — (ids, steps, batch_size) -> [steps, len(ids), B]
                      int32 flat-dataset indices (the batch stream)
     staleness      — [N] int, rounds since each client last trained
     """
     avail: np.ndarray
     participants: np.ndarray
+    batch_fn: Callable[..., Any] = None
     sample_indices: Callable[..., np.ndarray] = None
     staleness: np.ndarray = None
 
@@ -56,6 +62,8 @@ class CohortResult:
     client_params: int           # per-client trainable param count
     server_params: int           # server-side param count (0 => no server)
     payload: Any = None          # strategy-private, consumed by fold_server
+    tokens_per_batch: int = None  # per-step tokens when a strategy tunes
+    #                               batch sizes (None: the engine default)
     losses: Any = None           # [cohort] device tensor of final losses
 
 
@@ -121,8 +129,10 @@ class Strategy:
 
     def comm_cost(self, engine, d: int, available: bool,
                   ids) -> Tuple[np.ndarray, int]:
-        """-> (int64 [len(ids)] bytes on the wire this round, messages per
-        client) for the cohort ``ids`` of depth ``d``."""
+        """-> (bytes on the wire this round, messages) per client of the
+        cohort ``ids`` of depth ``d``: int64 arrays aligned with ``ids``,
+        or shared scalars. A strategy may omit ``ids`` (the reference's
+        three-argument protocol); it then returns scalars."""
         raise NotImplementedError
 
 
@@ -220,22 +230,27 @@ def state_like(state, shaped) -> bool:
                for a, b in zip(tree_leaves(state), tree_leaves(shaped)))
 
 
-def valid_opt_state(engine, opt, template) -> Any:
-    """``engine.state.opt_state["server"]`` if it has the shape
+def meta_like(tree):
+    """``tree``'s shapes and dtypes on the ``meta`` device (no storage)."""
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), tree)
+
+
+def valid_opt_state(engine, opt, template, slot: str = "server",
+                    ok: str = "_server_opt_ok") -> Any:
+    """``engine.state.opt_state[slot]`` if it has the shape
     ``opt.init(template)`` would give, else a fresh ``opt.init(template)``
     (stored back). The check builds ``opt``'s state on the ``meta``
     device, so it allocates nothing; it runs once per (engine, optimizer)
-    and again after every ``Engine.restore``, which resets
-    ``engine._server_opt_ok``."""
-    cur = engine.state.opt_state.get("server")
-    if cur is not None and getattr(engine, "_server_opt_ok", None) == id(opt):
+    and again after every ``Engine.restore``, which resets the engine's
+    ``ok`` attribute (``_server_opt_ok`` for the server moments,
+    ``_fedopt_ok`` for ``async_buffered``'s flush moments)."""
+    cur = engine.state.opt_state.get(slot)
+    if cur is not None and getattr(engine, ok, None) == id(opt):
         return cur
-    want = opt.init(tree_map(
-        lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
-        template))
-    if cur is None or not state_like(cur, want):
-        cur = engine.state.opt_state["server"] = opt.init(template)
-    engine._server_opt_ok = id(opt)
+    if cur is None or not state_like(cur, opt.init(meta_like(template))):
+        cur = engine.state.opt_state[slot] = opt.init(template)
+    setattr(engine, ok, id(opt))
     return cur
 
 
@@ -316,10 +331,6 @@ def mean_server_opt(states, template):
 
 _REGISTRY: Dict[str, Type[Strategy]] = {}
 
-# the reference's other strategies, and where the port's queue has them
-_NOT_YET = {name: 'ROADMAP queue 1, "Scenario strategies"'
-            for name in ("unstable", "async_buffered", "hasfl")}
-
 
 def register_strategy(name: str):
     def deco(cls: Type[Strategy]) -> Type[Strategy]:
@@ -330,13 +341,10 @@ def register_strategy(name: str):
 
 
 def get_strategy(name: str) -> Strategy:
-    if name in _REGISTRY:
-        return _REGISTRY[name]()
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet: {_NOT_YET[name]}")
-    raise KeyError(f"unknown strategy {name!r}; "
-                   f"available: {available_strategies()}")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown strategy {name!r}; "
+                       f"available: {available_strategies()}")
+    return _REGISTRY[name]()
 
 
 def available_strategies():

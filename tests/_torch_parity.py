@@ -7,6 +7,9 @@ the reference's weights through ``repro_torch.bridge``.
 Limits (the reference's own): round loss 1e-5 absolute; the cost-model
 record fields exactly; final params and server optimizer state 1e-4;
 fleet depths and widths, availability draws and batch indices exactly.
+
+``between(engine, r)``, when given, runs on both engines before round
+``r`` (r >= 1): the same edit on both sides, e.g. a re-tuned budget.
 """
 import jax
 import numpy as np
@@ -63,7 +66,16 @@ def _settings(strategy, cfg_kw, kw):
     return strategy, dict(SMALL, **cfg_kw), kw
 
 
-def run_reference(strategy="ssfl", cfg_kw=None, **kw):
+def _rounds(eng, between):
+    recs = []
+    for r in range(ROUNDS):
+        if r and between is not None:
+            between(eng, r)
+        recs.append(eng.run_round())
+    return recs
+
+
+def run_reference(strategy="ssfl", cfg_kw=None, between=None, **kw):
     """Two rounds of the JAX engine; its weights before them, its records,
     streams, final params and server optimizer state after them."""
     strategy, cfg_kw, kw = _settings(strategy, cfg_kw or {}, kw)
@@ -72,17 +84,19 @@ def run_reference(strategy="ssfl", cfg_kw=None, **kw):
     weights = (jax.tree.map(np.asarray, eng.state.params),
                jax.tree.map(np.asarray, eng.state.local_heads))
     log = record_streams(eng)
-    recs = [eng.run_round() for _ in range(ROUNDS)]
+    recs = _rounds(eng, between)
     return {"weights": weights, "recs": recs, "log": log,
             "params": flat_jax(eng.state.params),
             "server": (flat_jax(eng.state.opt_state["server"])
                        if "server" in eng.state.opt_state else None),
+            "opt_state": flat_jax(eng.state.opt_state),
             "depths": eng.state.fleet.depths.copy(),
             "widths": np.asarray(eng.state.fleet.widths).copy(),
             "acc_global": eng.evaluate(head="global"), "engine": eng}
 
 
-def run_port(reference, use_pallas, strategy="ssfl", cfg_kw=None, **kw):
+def run_port(reference, use_pallas, strategy="ssfl", cfg_kw=None,
+             between=None, **kw):
     """The same two rounds through the port from the reference's
     weights."""
     strategy, cfg_kw, kw = _settings(strategy, cfg_kw or {}, kw)
@@ -91,11 +105,12 @@ def run_port(reference, use_pallas, strategy="ssfl", cfg_kw=None, **kw):
     eng = TEngine(cfg, N_CLIENTS, strategy, device="cpu", **kw)
     bridge.install_weights(eng, *reference["weights"])
     log = record_streams(eng)
-    recs = [eng.run_round() for _ in range(ROUNDS)]
+    recs = _rounds(eng, between)
     return {"engine": eng, "recs": recs, "log": log,
             "params": flat_torch(eng.state.params),
             "server": (flat_torch(eng.state.opt_state["server"])
-                       if "server" in eng.state.opt_state else None)}
+                       if "server" in eng.state.opt_state else None),
+            "opt_state": flat_torch(eng.state.opt_state)}
 
 
 def assert_records_match(reference, port):

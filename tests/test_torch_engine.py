@@ -142,18 +142,13 @@ def test_engine_needs_a_device_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"strategy": "unstable"}, "Scenario strategies"),
-    ({"strategy": "hasfl"}, "Scenario strategies"),
-    ({"strategy": "async_buffered"}, "Scenario strategies"),
     ({"mesh": object()}, "Fleet sharding"),
     ({"sanitize": True}, "Tooling counterparts"),
 ])
 def test_outside_the_slice_raises(kw, match):
     cfg = TB.get_reduced("vit16_cifar").replace(**SMALL)
-    kw = dict(kw)
-    strategy = kw.pop("strategy", "ssfl")
     with pytest.raises(NotImplementedError, match=match):
-        TEngine(cfg, 3, strategy, device="cpu", **kw)
+        TEngine(cfg, 3, "ssfl", device="cpu", **kw)
 
 
 # Engine settings no other port test holds: each case runs the reference

@@ -1,5 +1,7 @@
 """The port stands alone: no file under ``src/repro_torch/``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``; and
+``chip_smoke.py``, the port's examples (``examples/*_torch.py``) or its
+tools (``tools/*_torch.py``), imports ``jax`` or the JAX package
+``repro``; and
 ``import repro_torch`` (every module of it) works in a fresh interpreter
 where ``jax`` and ``repro`` cannot be imported."""
 import ast
@@ -18,7 +20,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py"))
+            + sorted((ROOT / "tools").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path):
@@ -40,8 +44,14 @@ def test_port_sources_exist():
                  "federated/engine.py", "bridge.py",
                  "federated/strategies/splitfed.py",
                  "federated/strategies/fedavg.py", "checkpoint/ckpt.py",
-                 "launch/steps.py", "launch/train.py"):
+                 "launch/steps.py", "launch/train.py",
+                 "federated/strategies/unstable.py",
+                 "federated/strategies/async_buffered.py",
+                 "federated/strategies/hasfl.py", "federated/buffer.py",
+                 "federated/round.py"):
         assert want in names, want
+    for example in ("quickstart_torch.py", "fault_tolerance_torch.py"):
+        assert (ROOT / "examples" / example).exists(), example
 
 
 @pytest.mark.parametrize("path", _sources(),

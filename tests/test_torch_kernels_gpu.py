@@ -21,7 +21,9 @@ sums run in other orders) at ``chip_smoke.py``'s shapes: the Mamba2 and
 Hymba serve shapes, ``test_kernels.py``'s, every (head_dim, state) pair,
 S not a multiple of the kernel's chunk, S = 1, an odd number of heads, no
 D, and dt near 1 with A = −16, where an unmasked upper half would
-overflow.
+overflow. One round of the scenario strategies ``unstable`` and ``hasfl``
+(width ladder, fused) launches the kernels of its path and agrees with the
+same round with the kernels off within 1e-4.
 """
 import pytest
 
@@ -467,3 +469,57 @@ def test_ssm_train_step_on_the_card_launches_fuse_and_no_scan(cuda):
     assert fuse_leaf.launches - fuse0 == 2 * n_client
     assert ssd_scan.launches == scan0
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+SCENARIO_ROUNDS = {
+    # (strategy factory settings, engine settings, kernels that must launch)
+    "unstable": ({}, {}, ("fuse", "aggregate")),
+    # budget 1.1 on the reduced fleet: a depth-1 cohort of width tiers
+    # 0.25 and 1.0, so the fused cross-tier update runs tier_sum
+    "hasfl-ladder": (dict(width_tiers=(0.25, 0.5, 0.75, 1.0),
+                          time_budget_factor=1.1),
+                     dict(cross_tier="fused"),
+                     ("fuse", "aggregate", "tier_sum")),
+}
+
+
+def _scenario_round(cuda, name, use_pallas):
+    """One round of the reduced ViT (6 clients, seed 0) under ``name``;
+    returns (record, params, launches by kernel)."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.federated import Engine
+    from repro_torch.federated.strategies import HASFL, UnstableParticipation
+    from repro_torch.kernels.layer_aggregate.ops import aggregate_leaf
+    from repro_torch.kernels.tpgf_fusion.ops import fuse_leaf, tier_sum_leaf
+    skw, ekw, _ = SCENARIO_ROUNDS[name]
+    strategy = (UnstableParticipation if name == "unstable" else HASFL)(**skw)
+    cfg = get_reduced("vit16_cifar").replace(
+        n_layers=4, d_model=48, n_heads=4, n_kv_heads=4, head_dim=12,
+        d_ff=96, image_size=16, n_classes=6, use_pallas=use_pallas)
+    eng = Engine(cfg, 6, strategy, device=cuda, seed=0, lr=0.3,
+                 local_steps=2, batch_size=8, availability=0.8, **ekw)
+    wrappers = {"fuse": fuse_leaf, "aggregate": aggregate_leaf,
+                "tier_sum": tier_sum_leaf}
+    before = {k: f.launches for k, f in wrappers.items()}
+    rec = eng.run_round()
+    torch.cuda.synchronize()
+    return rec, eng.state.params, {k: f.launches - before[k]
+                                   for k, f in wrappers.items()}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIO_ROUNDS))
+def test_scenario_round_on_the_card_launches_the_kernels(cuda, name):
+    """One round of ``unstable`` and of ``hasfl`` on the width ladder with
+    the kernels on launches each kernel of their path, and agrees with the
+    same round with the kernels off (loss and params within 1e-4), which
+    launches none."""
+    from repro_torch.tree import tree_flatten_with_path, tree_get
+    rec, params, launches = _scenario_round(cuda, name, True)
+    for k in SCENARIO_ROUNDS[name][2]:
+        assert launches[k] > 0, (k, launches)
+    prec, pparams, plaunches = _scenario_round(cuda, name, False)
+    assert not any(plaunches.values()), plaunches
+    assert abs(rec["loss"] - prec["loss"]) <= 1e-4
+    for path, x in tree_flatten_with_path(params):
+        torch.testing.assert_close(x, tree_get(pparams, path), rtol=0,
+                                   atol=1e-4, msg=str(path))
