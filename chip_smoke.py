@@ -21,7 +21,11 @@ Phases, one JSON line each (plus the card's name and power limit as
      and the bound (bytes over 3.35 TB/s vs operations over the peak of
      their type: 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s
      bf16); ``flash_attention`` and ``ssd_scan`` are timed at both of
-     their paths' shapes and carry their ``ptxas`` registers and spills,
+     their paths' shapes and carry their ``ptxas`` registers and spills
+     (``flash_attention`` also checked and timed at Mixtral-8x7B's
+     windowed prefill shape, S 8,192 with window 4,096, its plain version
+     at B 1 and SDPA with the window as a boolean mask, the kernel SDPA
+     took named, and at InternVL2-2B's),
      and ``fuse`` also in bf16 at the LM training path's largest client
      leaf (within one bf16 ulp; a ``kernel_bf16`` line);
      then, where the machine has ``ncu``, one ``ncu --set full`` profile
@@ -96,7 +100,36 @@ Phases, one JSON line each (plus the card's name and power limit as
      1600, 25 query and 5 KV heads of 64, 50 SSM heads of 64, state 16):
      ``flash_attention`` and ``ssd_scan`` must each launch 32 times a
      prefill; its launches get a line of their own;
- 14. lm train path — Mamba2-2.7B at full width and depth trained by
+ 14. moe serve path — the same contract for Mixtral-8x7B at full width
+     (d_model 4096, 32 query and 8 KV heads of 128, 8 experts of d_ff
+     14336, top-2, dense dispatch), cut to 16 of its 32 layers (93.7 GB
+     of bf16 weights do not fit one card), 2 prompts of 8,192 tokens,
+     twice its 4,096-token sliding window: ``flash_attention`` must
+     launch 16 times a prefill, every call with window 4,096; the cache
+     must have 4,096 slots, each holding a position of its own residue,
+     after the prefill and after decode; decode from an 8,160-token
+     prefill runs the rolling cache against windowed flash. Its bf16
+     agreements are held to ``BF16_LOGIT_TOL["moe"]``, and it prints the
+     routing flips between kernels on and off, and between the 8,160-token
+     prefill and the full one (the (token, layer) pairs whose top-2 set
+     differs, by layer, with their margins; every margin into the
+     git-ignored ``results/chip_smoke_flips_<config>_<dtype>.json``) and
+     the prefill's summed router aux; the same agreements in fp32 at 4
+     layers are held to ``FP32_LOGIT_TOL``, and no flip in the first layer
+     where two runs route apart may lie above ``FP32_FLIP_MARGIN``;
+ 15. vlm serve path — InternVL2-2B whole (24 layers, d_model 2048, 16
+     and 8 heads of 128) in bf16, 4 prompts of 256 seeded N(0, 1) image
+     patches and 1,792 tokens: ``flash_attention`` 24 times a prefill,
+     agreements within ``SERVE_LOGIT_TOL``, decode from 256 + 1,760
+     positions;
+ 16. moe train path — Mixtral-8x7B at full width, 2 layers (split depth
+     1), through ``make_train_step`` with its config (bf16, remat, 4
+     microbatches, AdamW with fp32 moments), 3 steps of 8 × 512 with the
+     kernels off (flash has no backward): finite losses, the prefix's
+     router aux finite and positive, no kernel launch; step wall,
+     tokens/s, peak memory, a profiled step. The three phases' launches
+     get a line each, their seconds a ``phase_time`` line each;
+ 17. lm train path — Mamba2-2.7B at full width and depth trained by
      ``launch.steps.make_train_step`` with its config (bf16, remat, 4
      microbatches, AdamW with fp32 moments), 3 steps of 8 × 512 tokens
      from ``synthetic_lm_batches``, the serving weights freed first, with
@@ -109,14 +142,15 @@ Phases, one JSON line each (plus the card's name and power limit as
      weights: step-1 losses bit for bit, later ones within
      ``TRAIN_LOSS_RTOL``. Step wall, tokens/s, peak memory, a profiled
      step;
- 15. dense train path — Llama-3.2-3B at full width and depth trained
+ 18. dense train path — Llama-3.2-3B at full width and depth trained
      through ``launch/train.py``'s config and loop (one microbatch,
      bf16, remat, ``adamw(1e-3)``) with the kernels off, 3 steps of
      8 × 512: finite losses, no kernel launch, the same figures;
- 16. the ``kernels`` summary line; each kernel's ``launches`` come from
+ 19. the ``kernels`` summary line; each kernel's ``launches`` come from
      the path named beside it (counts set to 0 just before that path),
-     and ``also_on`` lists their launches on the scenario paths; the two
-     training paths' launches get a line of their own.
+     and ``also_on`` lists their launches on the scenario paths and the
+     moe and vlm paths; the three training paths' launches get a line of
+     their own.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it; so does a machine without a CUDA device, and a
@@ -151,7 +185,19 @@ PORT_KERNELS = ("fuse_kernel", "aggregate_kernel", "tier_sum_kernel",
 SERVE_ARCH = "llama3_2_3b"
 SSM_ARCH = "mamba2_2_7b"
 HYBRID_ARCH = "hymba_1_5b"
+MOE_ARCH = "mixtral_8x7b"
+VLM_ARCH = "internvl2_2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# Mixtral-8x7B's 32 layers are 93.7 GB in bf16, more than one 80 GB card:
+# it serves 16 of them (47.2 GB); its fp32 gate takes 4 (24.8 GB) and its
+# training path 2 (6.6 GB of weights, 26.4 GB of fp32 AdamW moments).
+# Two prompts of 8,192 tokens: twice its 4,096-token window, so flash
+# skips the tiles behind the window and the cache rolls, and 4 chunks of
+# the moe's 4,096 tokens
+MOE_SERVE_LAYERS, MOE_FP32_LAYERS, MOE_TRAIN_LAYERS = 16, 4, 2
+MOE_SERVE_BATCH, MOE_SERVE_PROMPT = 2, 8192
+# InternVL2-2B whole: 4 prompts of 256 image patches and 1,792 tokens
+VLM_SERVE_TEXT = 1792
 # ssd_scan against its plain version: y and h within this much of their
 # largest magnitude, the reference kernel's own bar (test_kernels.py)
 SSD_TOL = 1e-4
@@ -172,8 +218,24 @@ SERVE_LOGIT_TOL = 2e-2
 # above the largest of them. The gate on the kernels themselves is the
 # same three agreements in fp32 at full width and depth (readings
 # 3.0e-6–4.1e-5), held to FP32_LOGIT_TOL
-BF16_LOGIT_TOL = {"dense": SERVE_LOGIT_TOL, "ssm": 0.2, "hybrid": 5e-2}
+# The moe family in bf16: a kernel-on/off difference of one ulp in an
+# attention output can change a token's top-2 experts, and a changed
+# expert moves that token's MLP output by O(1), which the next layers
+# spread through attention. On the H100 at Mixtral's 16 layers, 2 ×
+# 8,192 tokens, 2.2 % of the prefill's (token, layer) routings differ
+# between kernels on and off, and the three bf16 agreements read 0.549
+# (prefill), 0.201 (decode) and 0.243 (decode vs the teacher-forced
+# prefill); the limit stands 37 % above the largest. In fp32 at 4 layers
+# no routing differs and the agreements read 5.9e-7 to 9.5e-4: that is
+# the gate on the kernel.
+BF16_LOGIT_TOL = {"dense": SERVE_LOGIT_TOL, "vlm": SERVE_LOGIT_TOL,
+                  "ssm": 0.2, "hybrid": 5e-2, "moe": 0.75}
 FP32_LOGIT_TOL = 1e-3
+# in fp32, where two runs of one model (kernels on and off, or the
+# teacher-forced prefill against the full one) first route a token apart,
+# only a near tie of the k-th and (k+1)-th router probabilities can have
+# flipped; a flip in that layer at a larger margin than this is a fault
+FP32_FLIP_MARGIN = 1e-5
 
 
 def emit(obj) -> None:
@@ -534,12 +596,38 @@ def _attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return total
 
 
-def phase_flash(shape, hybrid_shape, build_log):
+def _top_device_kernel(call) -> str:
+    """The name of the kernel that takes the most device time in one
+    ``call()`` under torch.profiler: the backend a library call took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    if not len(averages):
+        return "not measured: the profiler saw no kernel"
+    attr = ("self_device_time_total"
+            if hasattr(averages[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    top = max(averages, key=lambda ev: getattr(ev, attr, 0))
+    return top.key[:100]
+
+
+def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, build_log):
     """``flash_attention`` against its plain version on the card: the
-    serve path's shape and Hymba's in bf16 and fp32, a window, MQA, every
+    serve path's shape and Hymba's in bf16 and fp32, Mixtral's windowed
+    shapes (S 8,192 and its teacher-forced 8,160, window 4,096) and
+    InternVL2's, a window, MQA, every
     head dim, ragged S (one row past a tile), a window across tile edges,
-    Sq = 1, Sq and Skv unequal, and non-causal cases; timed in bf16 at the
-    serve path's shape and at Hymba's, each beside SDPA and its bound."""
+    Sq = 1, Sq and Skv unequal, and non-causal cases; timed in bf16 at
+    the serve path's shape and at Hymba's, Mixtral's and InternVL2's,
+    each beside SDPA and its bound. ``moe_shape`` is (B, S, H, K, hd,
+    window). At Mixtral's shape the plain version runs at B 1 (its fp32
+    [B, H, S, S] scores at B 2 would not fit beside their copies), and
+    SDPA takes the window as a boolean mask; the kernel SDPA ran is named
+    from a profiled call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as O, ref as R
@@ -548,10 +636,20 @@ def phase_flash(shape, hybrid_shape, build_log):
     B, S, H, K, hd = shape
     tols = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
     hb, hs, hh, hk, hhd = hybrid_shape
+    mb, ms_moe, mh, mk, mhd, mwin = moe_shape
+    vb, vs, vh, vk, vhd = vlm_shape
     # (key, (B, Sq, Skv, H, K, hd), causal, window)
     cases = [(f"path/{B}x{S}x{H}x{K}x{hd}", (B, S, S, H, K, hd), True, 0),
              (f"hymba/{hb}x{hs}x{hh}x{hk}x{hhd}", (hb, hs, hs, hh, hk, hhd),
               True, 0),
+             (f"mixtral/1x{ms_moe}x{mh}x{mk}x{mhd}/window{mwin}",
+              (1, ms_moe, ms_moe, mh, mk, mhd), True, mwin),
+             # the moe path's teacher-forced prefill: S not a whole tile
+             (f"mixtral/1x{ms_moe - SERVE_GEN}x{mh}x{mk}x{mhd}/"
+              f"window{mwin}", (1, ms_moe - SERVE_GEN, ms_moe - SERVE_GEN,
+                                mh, mk, mhd), True, mwin),
+             (f"internvl2/{vb}x{vs}x{vh}x{vk}x{vhd}",
+              (vb, vs, vs, vh, vk, vhd), True, 0),
              ("window256", (1, S, S, H, K, hd), True, 256),
              ("mqa", (2, 512, 512, 8, 1, hd), True, 0),
              ("hd32", (1, 256, 256, 4, 2, 32), True, 0),
@@ -591,21 +689,56 @@ def phase_flash(shape, hybrid_shape, build_log):
                 del q, kk, v
         torch.cuda.synchronize()
 
-        def timed(b, s, h, k, d):
+        def timed(b, s, h, k, d, window=0, plain_b=None):
+            """kernel, plain (at ``plain_b`` rows of the batch) and SDPA
+            times, the bound's operations and bytes, SDPA's kernel."""
             q, kk, v = inputs(b, s, s, h, k, d, torch.bfloat16)
-            ms = time_ms(lambda: O.flash_attention(q, kk, v, causal=True))
-            plain_ms = time_ms(lambda: R.flash_attention_ref(q, kk, v,
-                                                             causal=True))
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True))
-            flops = 4.0 * d * b * h * _attended_pairs(s, s, True, 0)
-            nbytes = 2.0 * (2 * q.numel() + kk.numel() + v.numel())
-            return ms, plain_ms, library_ms, flops, nbytes
+            ms = time_ms(lambda: O.flash_attention(q, kk, v, causal=True,
+                                                   window=window))
+            pb = plain_b or b
+            qp, kp, vp = q[:pb], kk[:pb], v[:pb]
+            big = pb * h * s * s * 4 > 2**32   # fp32 scores past 4 GiB
+            plain_ms = time_ms(
+                lambda: R.flash_attention_ref(qp, kp, vp, causal=True,
+                                              window=window),
+                **(dict(warmup=1, reps=2, samples=3) if big else {}))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, v))
+            if window:
+                rows = torch.arange(s, device=dev)[:, None]
+                cols = torch.arange(s, device=dev)[None, :]
+                mask = (cols <= rows) & (cols > rows - window)
 
-        ms, plain_ms, library_ms, flops, nbytes = timed(B, S, H, K, hd)
-        h_ms, h_plain_ms, h_library_ms, h_flops, h_nbytes = timed(
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            else:
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+            library_ms = time_ms(sdpa)
+            backend = _top_device_kernel(sdpa)
+            flops = 4.0 * d * b * h * _attended_pairs(s, s, True, window)
+            nbytes = 2.0 * (2 * q.numel() + kk.numel() + v.numel())
+            return ms, plain_ms, library_ms, flops, nbytes, backend
+
+        ms, plain_ms, library_ms, flops, nbytes, backend = timed(
+            B, S, H, K, hd)
+        h_ms, h_plain_ms, h_library_ms, h_flops, h_nbytes, _ = timed(
             *hybrid_shape)
+        at_shapes = {}
+        for label, args, kw in (
+                ("mixtral", (mb, ms_moe, mh, mk, mhd),
+                 dict(window=mwin, plain_b=1)),
+                ("internvl2", vlm_shape, {})):
+            t = timed(*args, **kw)
+            b_ms, b_by = bound(t[4], t[3], BF16_FLOPS_PER_S)
+            at_shapes[label] = {
+                "shape": list(args), "window": kw.get("window", 0),
+                "ms": t[0], "plain_ms": t[1],
+                "plain_batch": kw.get("plain_b") or args[0],
+                "library_ms": t[2], "library_kernel": t[5],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "gflop": t[3] / 1e9, "mbytes": t[4] / 1e6}
     bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -616,12 +749,16 @@ def phase_flash(shape, hybrid_shape, build_log):
            "bound_by": bound_by, "library_ms": library_ms,
            "library_call": "F.scaled_dot_product_attention(q, k, v "
                            "transposed to [B, H, S, hd] views, "
-                           "is_causal=True, enable_gqa=True)",
+                           "is_causal=True, enable_gqa=True; with a "
+                           "window, attn_mask = the causal window as "
+                           "booleans)",
+           "library_kernel": backend,
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
            "hybrid_shape": list(hybrid_shape), "hybrid_ms": h_ms,
            "hybrid_plain_ms": h_plain_ms,
            "hybrid_library_ms": h_library_ms,
            "hybrid_bound_ms": bound(h_nbytes, h_flops, BF16_FLOPS_PER_S)[0],
+           "at_shapes": at_shapes,
            "ptxas": ptxas_figures(build_log, "flash_attention_bf16_kernel")}
     emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
     return row
@@ -1155,63 +1292,295 @@ def _rel_logit_diff(got, want) -> float:
 
 
 def _config_fields(cfg):
-    """The widths a serve line reports for ``cfg``'s family."""
+    """The widths a serve or train line reports for ``cfg``'s family."""
     out = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "moe", "vlm", "hybrid"):
         out.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                   head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff)
+                   head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+                   sliding_window=cfg.sliding_window)
+    if cfg.family == "moe":
+        out.update(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                   moe_dispatch=cfg.moe_dispatch)
+    if cfg.family == "vlm":
+        out.update(n_patches=cfg.n_patches)
     if cfg.family in ("ssm", "hybrid"):
         out.update(ssm_d_inner=cfg.ssm_d_inner, ssm_n_heads=cfg.ssm_n_heads,
                    ssm_head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state)
     return out
 
 
-def _serve_agreements(cfg, params, toks, fed):
+def _n_patches(cfg) -> int:
+    """Positions before the text: a vlm prompt's image patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def _serve_inputs(cfg, batch: int, prompt: int):
+    """A serve path's prompts on the card: ``tokens`` [batch, prompt] from
+    ``synthetic_lm_batches`` (seed 1) and, for vlm, ``patches`` [batch,
+    n_patches, d_model] drawn N(0, 1) from seed 2 in the config's
+    dtype."""
+    import torch
+    from repro_torch.data.synthetic import synthetic_lm_batches
+    from repro_torch.models.model import torch_dtype
+    b = next(synthetic_lm_batches(cfg.vocab, prompt, batch, 1, seed=1))
+    out = {"tokens": torch.as_tensor(b["tokens"], device="cuda").long()}
+    if cfg.family == "vlm":
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        out["patches"] = torch.randn(
+            (batch, cfg.n_patches, cfg.d_model), generator=gen,
+            device="cuda").to(torch_dtype(cfg))
+    return out
+
+
+class _RouteProbe:
+    """While active (and ``on``), records each call of the port's moe
+    router and layer: every token's top-k expert set (sorted), its
+    routing margin (the k-th largest probability minus the (k+1)-th), and
+    each layer's router aux. The module's functions are restored on
+    exit. Used only to compare two runs, never on a timed one."""
+
+    def __init__(self, on: bool):
+        self.on = on
+        self.sets, self.margins, self.aux = [], [], []
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        from repro_torch.models import moe as MOE
+        self._mod, self._route, self._apply = MOE, MOE.route, MOE.moe_apply
+
+        def route(cfg, p, xt):
+            probs, topv, topi = self._route(cfg, p, xt)
+            top = probs.topk(cfg.top_k + 1, dim=-1).values
+            self.sets.append(topi.sort(dim=-1).values)
+            self.margins.append(top[:, -2] - top[:, -1])
+            return probs, topv, topi
+
+        def moe_apply(cfg, p, x):
+            y, aux = self._apply(cfg, p, x)
+            self.aux.append(aux.detach())
+            return y, aux
+
+        MOE.route, MOE.moe_apply = route, moe_apply
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            self._mod.route, self._mod.moe_apply = self._route, self._apply
+
+    def mark(self):
+        """(router calls, layer calls) so far; the first mark is the
+        prefill's end."""
+        self.n_prefill = len(self.sets)
+        return len(self.sets), len(self.aux)
+
+
+# the first flipping layer's margins a line prints (the largest first);
+# every flip's margin goes to results/chip_smoke_flips_<path>.json
+FLIP_MARGINS_SHOWN = 64
+# the decades of a margin histogram: < 1e-7, [1e-7, 1e-6), ..., >= 1e-1
+MARGIN_DECADES = (1e-7, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1)
+
+
+def _by_layer(probe, lo, hi, n_layers, step_major=False):
+    """The router calls [lo, hi) of a probe, per layer: (sets [T, k],
+    margins [T]) over the tokens in call order. A prefill calls each
+    layer's chunks in turn (layer-major); decode calls every layer once a
+    step (``step_major``)."""
+    import torch
+    calls = list(range(lo, hi))
+    per = len(calls) // n_layers
+    out = []
+    for layer in range(n_layers):
+        idx = (calls[layer::n_layers] if step_major
+               else calls[layer * per:(layer + 1) * per])
+        out.append((torch.cat([probe.sets[i] for i in idx]),
+                    torch.cat([probe.margins[i] for i in idx])))
+    return out
+
+
+def _histogram(margins):
+    counts = [0] * (len(MARGIN_DECADES) + 1)
+    for m in margins:
+        counts[sum(m >= d for d in MARGIN_DECADES)] += 1
+    return counts
+
+
+def _flips(a_layers, b_layers):
+    """Routing flips between two runs over the same tokens, per layer:
+    the (token, layer) pairs whose top-k set differs, and each flip's
+    margin (the larger of the two runs' margins). Up to the first layer
+    with a flip the runs differ by rounding alone, so that layer's
+    margins say how near a tie the rounding found; a later flip also
+    follows from the O(1) change an earlier one made to its token, which
+    attention spreads to the tokens after it."""
+    by_layer, every, first = [], [], None
+    for layer, ((sa, ma), (sb, mb)) in enumerate(zip(a_layers, b_layers)):
+        diff = (sa != sb).any(dim=-1)
+        m = sorted(ma.maximum(mb)[diff].tolist(), reverse=True)
+        by_layer.append(len(m))
+        every += m
+        if m and first is None:
+            first = (layer, m)
+    every.sort(reverse=True)
+    return {"flips": len(every),
+            "routed": sum(sa.shape[0] for sa, _ in a_layers),
+            "flips_by_layer": by_layer,
+            "first_flip_layer": first[0] if first else None,
+            "first_layer_max_margin": first[1][0] if first else None,
+            "first_layer_margins": (first[1][:FLIP_MARGINS_SHOWN]
+                                    if first else []),
+            "max_margin": every[0] if every else None,
+            "margin_decades": _histogram(every)}, every
+
+
+def _routing(name, a, b, n_pre, n_layers):
+    """Routing flips between the kernels-on probe ``a`` and the -off
+    probe ``b``, in the prefill (the first ``n_pre`` router calls) and in
+    decode, and the summed router aux of ``a``'s prefill. Every flip's
+    margin is written to results/."""
+    out, every = {}, {}
+    for part, (lo, hi), major in (("prefill", (0, n_pre[0]), False),
+                                  ("decode", (n_pre[0], len(a.sets)), True)):
+        summary, every[part] = _flips(
+            _by_layer(a, lo, hi, n_layers, major),
+            _by_layer(b, lo, hi, n_layers, major))
+        out.update({f"{part}_{k}": v for k, v in summary.items()})
+    out["prefill_router_aux_sum"] = float(sum(x.float()
+                                              for x in a.aux[:n_pre[1]]))
+    res = ROOT / "results"
+    res.mkdir(exist_ok=True)
+    (res / f"chip_smoke_flips_{name}.json").write_text(json.dumps(
+        {"decades": MARGIN_DECADES, **every}))
+    return out
+
+
+def _tf_flips(full, tf, batch, S, n0, n_layers):
+    """Routing flips between the full prefill (probe ``full``, its first
+    router calls) and the prefill of the first ``n0`` tokens (probe
+    ``tf``) over the positions both saw."""
+    def shared(probe, calls, s):
+        return [(x.reshape(batch, s, -1)[:, :n0].reshape(batch * n0, -1),
+                 m.reshape(batch, s)[:, :n0].reshape(-1))
+                for x, m in _by_layer(probe, 0, calls, n_layers)]
+    summary, _ = _flips(shared(full, full.n_prefill, S),
+                        shared(tf, len(tf.sets), n0))
+    return {f"teacher_forced_prefill_{k}": v for k, v in summary.items()}
+
+
+def _cache_fields(name, cfg, cache):
+    """The cache's slots after a prefill or decode: W slots, slot s
+    holding a position p with p % W == s; once the positions pass the
+    config's sliding window, W is that window and the slots hold the last
+    W positions. Dies otherwise."""
+    import torch
+    pos, idx = cache["pos"], int(cache["idx"])
+    W = pos.shape[1]
+    filled = pos >= 0
+    slots = torch.arange(W, device=pos.device)
+    ok = bool(((pos % W == slots) | ~filled).all())
+    win = cfg.sliding_window
+    wrapped = bool(win) and idx > win
+    if wrapped:
+        ok = ok and W == win and bool(filled.all()) and \
+            int(pos.max()) == idx - 1 and int(pos.min()) == idx - W
+    if not ok:
+        die(f"{name}: the cache at idx {idx} does not hold position "
+            f"% {W} in each slot (window {win})")
+    return {"slots": W, "idx": idx, "wrapped": wrapped,
+            "pos_min": int(pos[filled].min()), "pos_max": int(pos.max())}
+
+
+class _FlashWindows:
+    """Records (Sq, window) of every ``flash_attention`` call the model
+    makes while active: the model module's handle on the kernel's ops
+    module is swapped for a recording one (the real wrapper still runs
+    and counts its launches)."""
+
+    def __enter__(self):
+        import types
+        from repro_torch.models import model as M
+        self._M, self._FA = M, M.FA
+        real = M.FA.flash_attention
+        self.calls = []
+
+        def flash_attention(q, k, v, *, causal=True, window=0):
+            self.calls.append((q.shape[1], window))
+            return real(q, k, v, causal=causal, window=window)
+
+        M.FA = types.SimpleNamespace(flash_attention=flash_attention)
+        return self
+
+    def __exit__(self, *exc):
+        self._M.FA = self._FA
+
+
+def _serve_agreements(cfg, params, inputs, fed):
     """Kernels on vs off — the prefill logits, and decode steps fed the
     tokens ``fed`` (greedy argmax over random weights flips on rounding
-    noise) — and decode from a prefill of SERVE_PROMPT − SERVE_GEN tokens
-    (kernels on) against the full prefill's logits at the positions it
-    decodes; each as max |Δlogit| / max |logit|. Kernels off must launch
-    nothing."""
+    noise) — and decode from a prefill of the prompt's first S − SERVE_GEN
+    tokens (kernels on) against the full prefill's logits at the positions
+    it decodes; each as max |Δlogit| / max |logit|. Kernels off must
+    launch nothing. A moe config also reports its routing flips between
+    the kernels-on and -off runs (``_routing``)."""
     import torch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    runs = {}
+    moe = cfg.family == "moe"
+    toks = inputs["tokens"]
+    S, npch = toks.shape[1], _n_patches(cfg)
+    runs, probes = {}, {}
     for on in (True, False):
         c = cfg.replace(use_pallas=on)
         _zero_counts()
-        logits, cache = make_prefill_step(c, decode_budget=SERVE_GEN)(
-            params, {"tokens": toks})
-        serve = make_serve_step(c)
-        steps = []
-        for tok in fed:
-            lg, cache = serve(params, cache, tok)
-            steps.append(lg)
+        with _RouteProbe(moe) as probe:
+            logits, cache = make_prefill_step(c, decode_budget=SERVE_GEN)(
+                params, inputs)
+            n_pre = probe.mark()
+            serve = make_serve_step(c)
+            steps = []
+            for tok in fed:
+                lg, cache = serve(params, cache, tok)
+                steps.append(lg)
         if not on and any(_counts().values()):
             die(f"{cfg.name}: use_pallas=False launched a kernel: "
                 f"{_counts()}")
         runs[on] = (logits, torch.cat(steps, 1))
+        probes[on] = probe
         del cache, steps
     d_prefill = _rel_logit_diff(runs[True][0], runs[False][0])
     d_decode = _rel_logit_diff(runs[True][1], runs[False][1])
     full = runs[True][0]
     del runs
-    # the cache on the card: prefill SERVE_PROMPT − SERVE_GEN tokens, then
-    # decode the rest teacher-forced; step t's logits are position t's
+    routing = (_routing(f"{cfg.name}_{cfg.dtype}", probes[True],
+                        probes[False], n_pre, cfg.n_layers) if moe else {})
+    # the cache on the card: prefill S − SERVE_GEN tokens (after any
+    # patches), then decode the rest teacher-forced; step t's logits are
+    # position npch + t's
     on = cfg.replace(use_pallas=True)
-    n0 = SERVE_PROMPT - SERVE_GEN
-    _, cache = make_prefill_step(on, decode_budget=SERVE_GEN)(
-        params, {"tokens": toks[:, :n0]})
+    n0 = S - SERVE_GEN
+    with _RouteProbe(moe) as tf_probe:
+        _, cache = make_prefill_step(on, decode_budget=SERVE_GEN)(
+            params, dict(inputs, tokens=toks[:, :n0]))
+    if moe:
+        routing.update(_tf_flips(probes[True], tf_probe, toks.shape[0], S,
+                                 n0, cfg.n_layers))
+    del probes, tf_probe
+    cache_prefill = _cache_fields(cfg.name, cfg, cache)
     serve = make_serve_step(on)
     tf = []
-    for t in range(n0, SERVE_PROMPT):
+    for t in range(n0, S):
         lg, cache = serve(params, cache, toks[:, t:t + 1])
         tf.append(lg)
-    d_cache = _rel_logit_diff(torch.cat(tf, 1), full[:, n0:])
+    cache_decode = _cache_fields(cfg.name, cfg, cache)
+    d_cache = _rel_logit_diff(torch.cat(tf, 1), full[:, npch + n0:])
     return {"prefill_kernels_vs_plain": d_prefill,
             "decode_kernels_vs_plain": d_decode,
             "decode_vs_teacher_forced_prefill": d_cache,
-            "max_abs_logit": float(full.float().abs().max())}
+            "max_abs_logit": float(full.float().abs().max()),
+            "teacher_forced_from": npch + n0,
+            "cache_after_prefill": cache_prefill,
+            "cache_after_decode": cache_decode, **routing}
 
 
 def _check_agreements(name, agree, limit):
@@ -1222,21 +1591,26 @@ def _check_agreements(name, agree, limit):
                 f"{agree[key]} > {limit}")
 
 
-def phase_serve_path(name, arch, expect):
-    """``arch`` at full width, bf16, served through the port's entry
-    points: prefill of 4 × 2,048 tokens and 32 greedy decode steps; one
-    prefill and its decode must launch each kernel exactly as ``expect``
-    says ({name: launches}, every other kernel never); kernels off must
-    agree, and decode must reproduce the teacher-forced prefill (the ssm
-    and hybrid families also at full width and depth in fp32: see
-    FP32_LOGIT_TOL). Returns the launch counts."""
+def phase_serve_path(name, arch, expect, *, batch=SERVE_BATCH,
+                     prompt=SERVE_PROMPT, layers=0, fp32_layers=0):
+    """``arch`` at full width in bf16 (its first ``layers`` layers when
+    that is not 0), served through the port's entry points: prefill of
+    ``batch`` prompts of ``prompt`` tokens (after a vlm's patches) and 32
+    greedy decode steps; one prefill and its decode must launch each
+    kernel exactly as ``expect`` says ({name: launches}, every other
+    kernel never), every flash call with the config's sliding window;
+    kernels off must agree, and decode must reproduce the teacher-forced
+    prefill; with ``fp32_layers`` the same three agreements in fp32 at
+    that depth (see FP32_LOGIT_TOL). Returns the launch counts."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.data.synthetic import synthetic_lm_batches
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.model import init_params, param_count
 
     cfg = get_config(arch).replace(use_pallas=True)
+    full_layers = cfg.n_layers
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1244,21 +1618,23 @@ def phase_serve_path(name, arch, expect):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count(params)
-    batch = next(synthetic_lm_batches(cfg.vocab, SERVE_PROMPT, SERVE_BATCH,
-                                      1, seed=1))
-    toks = torch.as_tensor(batch["tokens"], device="cuda").long()
+    inputs = _serve_inputs(cfg, batch, prompt)
+    npch = _n_patches(cfg)
     prefill = make_prefill_step(cfg, decode_budget=SERVE_GEN)
     serve = make_serve_step(cfg)
     V = cfg.vocab
 
     def run_serve():
         """prefill, then SERVE_GEN greedy steps; returns the prefill
-        logits, the tokens fed to decode, each step's logits and the two
-        walls."""
+        logits, the tokens fed to decode, each step's logits, the two
+        walls and the cache's slots after the prefill and the decode."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": toks})
+        logits, cache = prefill(params, inputs)
         tok = logits[:, -1:, :V].argmax(dim=-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        slots = [_cache_fields(name, cfg, cache)]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         fed, step_logits = [], []
@@ -1268,13 +1644,19 @@ def phase_serve_path(name, arch, expect):
             step_logits.append(lg)
             tok = lg[:, :, :V].argmax(dim=-1)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        return logits, fed, step_logits, t1 - t0, t2 - t1
+        decode_s = time.perf_counter() - t1
+        slots.append(_cache_fields(name, cfg, cache))
+        return logits, fed, step_logits, prefill_s, decode_s, slots
 
-    run_serve()                               # warm-up: cuBLAS, allocator
+    with _FlashWindows() as flash:            # warm-up: cuBLAS, allocator
+        run_serve()
+    windows = sorted(set(flash.calls))
+    if any(w != cfg.sliding_window for _, w in flash.calls):
+        die(f"{name}: flash_attention ran with (Sq, window) {windows}, "
+            f"expected window {cfg.sliding_window}")
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    logits_on, fed, steps_on, prefill_s, decode_s = run_serve()
+    logits_on, fed, steps_on, prefill_s, decode_s, slots = run_serve()
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     want = {k: expect.get(k, 0) for k in launches}
@@ -1284,33 +1666,35 @@ def phase_serve_path(name, arch, expect):
     gen_tokens = torch.cat(fed, dim=1)
     finite = bool(torch.isfinite(logits_on).all()) and all(
         bool(torch.isfinite(x).all()) for x in steps_on)
-    if logits_on.shape != (SERVE_BATCH, SERVE_PROMPT, cfg.padded_vocab) \
+    if logits_on.shape != (batch, npch + prompt, cfg.padded_vocab) \
             or not finite:
         die(f"{name}: prefill logits {tuple(logits_on.shape)}, finite "
             f"{finite}")
-    ntok = SERVE_BATCH * SERVE_PROMPT
+    ntok = batch * (npch + prompt)
     emit({"phase": name, "config": cfg.name, "dtype": cfg.dtype,
-          **_config_fields(cfg), "params": n_params,
-          "init_s": init_s, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
-          "decode_steps": SERVE_GEN, "launches": launches,
+          **_config_fields(cfg), "layers_of": full_layers,
+          "params": n_params, "init_s": init_s, "batch": batch,
+          "prompt": prompt, "patches": npch, "decode_steps": SERVE_GEN,
+          "launches": launches, "flash_sq_window": windows,
+          "cache_after_prefill": slots[0], "cache_after_decode": slots[1],
           "prefill_ms": prefill_s * 1e3,
           "prefill_tokens_per_s": ntok / prefill_s,
           "decode_ms_per_step": decode_s * 1e3 / SERVE_GEN,
-          "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s,
+          "decode_tokens_per_s": batch * SERVE_GEN / decode_s,
           "peak_mem_gb": peak_gb,
           "generated_req0": gen_tokens[0, :8].tolist()})
 
     del logits_on, steps_on
-    agree = _serve_agreements(cfg, params, toks, fed)
+    agree = _serve_agreements(cfg, params, inputs, fed)
     limit = BF16_LOGIT_TOL[cfg.family]
     emit({"phase": "serve_agreement", "path": name, "dtype": cfg.dtype,
-          "limit": limit, **agree})
+          "n_layers": cfg.n_layers, "limit": limit, **agree})
     _check_agreements(name, agree, limit)
     torch.cuda.empty_cache()
     held = {}
 
     def profiled_prefill():
-        held["out"] = prefill(params, {"tokens": toks})
+        held["out"] = prefill(params, inputs)
 
     prefix = name.removesuffix("_path")
     _profile(profiled_prefill, prefill_s, f"{prefix}_prefill")
@@ -1319,18 +1703,26 @@ def phase_serve_path(name, arch, expect):
     del logits
     _profile(lambda: serve(params, cache, tok), decode_s / SERVE_GEN,
              f"{prefix}_decode")
-    if cfg.family in ("ssm", "hybrid"):
-        # the same weights in fp32 (bf16's are these, rounded)
+    if fp32_layers:
+        # fp32 weights from the same seed (at the same depth, the bf16
+        # weights are these, rounded)
         del params, cache, held
         gc.collect()
         torch.cuda.empty_cache()
-        f32 = cfg.replace(dtype="float32")
+        f32 = cfg.replace(dtype="float32", n_layers=fp32_layers)
         params = init_params(f32, torch.Generator(device="cuda").manual_seed(
             0), device="cuda")
-        agree = _serve_agreements(f32, params, toks, fed)
+        agree = _serve_agreements(f32, params, inputs, fed)
         emit({"phase": "serve_agreement", "path": name, "dtype": "float32",
-              "limit": FP32_LOGIT_TOL, **agree})
+              "n_layers": f32.n_layers, "limit": FP32_LOGIT_TOL, **agree})
         _check_agreements(f"{name} (fp32)", agree, FP32_LOGIT_TOL)
+        for part in ("prefill", "decode", "teacher_forced_prefill"):
+            worst = agree.get(f"{part}_first_layer_max_margin")
+            if worst is not None and worst > FP32_FLIP_MARGIN:
+                die(f"{name} (fp32): in the first layer where the two "
+                    f"{part} runs route apart, a token changed its top-"
+                    f"{f32.top_k} experts at a routing margin of {worst} "
+                    f"> {FP32_FLIP_MARGIN}")
     return launches
 
 
@@ -1553,6 +1945,50 @@ def phase_dense_train_path(arch):
     return launches
 
 
+def phase_moe_train_path(arch, layers):
+    """Mixtral-8x7B at full width, its first ``layers`` layers (split
+    depth 1), trained by ``make_train_step`` with its config (bf16, remat,
+    4 microbatches, AdamW with fp32 moments) with the kernels off (the
+    family has attention, and flash has no backward): 3 steps of 8 × 512,
+    finite losses, no kernel launch, then the first microbatch's TPGF
+    gradients once more for the prefix's router aux (the step reports 0.0
+    with more than one microbatch, as the reference does), finite and
+    positive. Step wall, tokens/s, peak memory, a profiled step."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tpgf as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import param_count
+    cfg = get_config(arch).replace(n_layers=layers)
+    step_fn, opt = make_train_step(cfg)
+    params, opt_state, recs, launches, peak_gb, last = _train_run(
+        cfg, step_fn, opt, "moe_train_path", TRAIN_STEPS)
+    if any(launches.values()):
+        die(f"moe_train_path: a kernel launched: {launches}")
+    mb0 = {k: v[:TRAIN_BATCH // cfg.microbatches] for k, v in last.items()}
+    out = T.tpgf_grads(cfg, params, mb0, cfg.resolved_split_depth)
+    aux = float(out.aux)
+    del out
+    if not (math.isfinite(aux) and aux > 0):
+        die(f"moe_train_path: the prefix's router aux is {aux}")
+    walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
+    wall_ms = statistics.median(walls)
+    emit({"phase": "moe_train_path", "config": cfg.name,
+          **_config_fields(cfg), "layers_of": get_config(arch).n_layers,
+          "dtype": cfg.dtype, "params": param_count(params),
+          "remat": cfg.remat, "microbatches": cfg.microbatches,
+          "split_depth": cfg.resolved_split_depth,
+          "moment_dtype": cfg.adam_moment_dtype, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "launches": launches,
+          "prefix_router_aux_microbatch0": aux,
+          "step_wall_ms": wall_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3),
+          "peak_mem_gb": peak_gb})
+    _profile(lambda: step_fn(params, opt_state, last), wall_ms / 1e3,
+             "moe_train")
+    return launches
+
+
 def _is_port_kernel(name: str) -> bool:
     """A profiler row of one of the port's CUDA kernels (``csrc/``)."""
     return any(f"(anonymous namespace)::{k}" in name for k in PORT_KERNELS)
@@ -1673,6 +2109,15 @@ def phase_ncu():
 
 
 # ------------------------------------------------------------------- main
+def timed_phase(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, then a line with its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    emit({"phase": "phase_time", "path": name,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
 def _largest_client_leaf(cfg):
     """The shape of the largest leaf of ``cfg``'s client view at its
     split depth (on the meta device: shapes only)."""
@@ -1717,6 +2162,7 @@ def main() -> None:
                 if len(set(widths[fleet.depths == d])) > 1)
     lm = get_config(SERVE_ARCH)
     ssm, hybrid = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
+    moe, vlm = get_config(MOE_ARCH), get_config(VLM_ARCH)
     rows = [phase_fuse((d_max, cfg.d_model, cfg.d_ff),
                        _largest_client_leaf(ssm)),
             phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff),
@@ -1724,7 +2170,13 @@ def main() -> None:
             phase_sumsq(cfg, d_max),
             phase_flash(*((SERVE_BATCH, SERVE_PROMPT, c.n_heads,
                            c.n_kv_heads, c.resolved_head_dim)
-                          for c in (lm, hybrid)), logs["flash_attention"]),
+                          for c in (lm, hybrid)),
+                        (MOE_SERVE_BATCH, MOE_SERVE_PROMPT, moe.n_heads,
+                         moe.n_kv_heads, moe.resolved_head_dim,
+                         moe.sliding_window),
+                        (SERVE_BATCH, vlm.n_patches + VLM_SERVE_TEXT,
+                         vlm.n_heads, vlm.n_kv_heads, vlm.resolved_head_dim),
+                        logs["flash_attention"]),
             phase_ssd_scan(*((SERVE_BATCH, SERVE_PROMPT, c.ssm_n_heads,
                               c.ssm_head_dim, c.ssm_state)
                              for c in (ssm, hybrid)), logs["ssd_scan"])]
@@ -1762,15 +2214,33 @@ def main() -> None:
     gc.collect()                      # the Llama weights go first
     torch.cuda.empty_cache()
     launches["ssm_serve_path"] = phase_serve_path(
-        "ssm_serve_path", SSM_ARCH, {"ssd_scan": ssm.n_layers})
+        "ssm_serve_path", SSM_ARCH, {"ssd_scan": ssm.n_layers},
+        fp32_layers=ssm.n_layers)
     gc.collect()
     torch.cuda.empty_cache()
     launches["hybrid_serve_path"] = phase_serve_path(
         "hybrid_serve_path", HYBRID_ARCH,
-        {"flash_attention": hybrid.n_layers, "ssd_scan": hybrid.n_layers})
+        {"flash_attention": hybrid.n_layers, "ssd_scan": hybrid.n_layers},
+        fp32_layers=hybrid.n_layers)
+    gc.collect()                      # the Hymba weights go first
+    torch.cuda.empty_cache()
+    launches["moe_serve_path"] = timed_phase(
+        "moe_serve_path", phase_serve_path, "moe_serve_path", MOE_ARCH,
+        {"flash_attention": MOE_SERVE_LAYERS}, batch=MOE_SERVE_BATCH,
+        prompt=MOE_SERVE_PROMPT, layers=MOE_SERVE_LAYERS,
+        fp32_layers=MOE_FP32_LAYERS)
+    gc.collect()                      # the Mixtral weights go first
+    torch.cuda.empty_cache()
+    launches["vlm_serve_path"] = timed_phase(
+        "vlm_serve_path", phase_serve_path, "vlm_serve_path", VLM_ARCH,
+        {"flash_attention": vlm.n_layers}, prompt=VLM_SERVE_TEXT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = {"moe_train_path": timed_phase(
+        "moe_train_path", phase_moe_train_path, MOE_ARCH, MOE_TRAIN_LAYERS)}
     gc.collect()                      # the serving weights go first
     torch.cuda.empty_cache()
-    train_launches = {"lm_train_path": phase_lm_train_path(SSM_ARCH)}
+    train_launches["lm_train_path"] = phase_lm_train_path(SSM_ARCH)
     gc.collect()
     torch.cuda.empty_cache()
     train_launches["dense_train_path"] = phase_dense_train_path(SERVE_ARCH)
@@ -1779,10 +2249,13 @@ def main() -> None:
                   "tier_sum": "width_path", "sumsq": "clip_path",
                   "flash_attention": "serve_path",
                   "ssd_scan": "ssm_serve_path"}
+    also = dict(scenario, moe_serve_path=launches["moe_serve_path"],
+                vlm_serve_path=launches["vlm_serve_path"],
+                moe_train_path=train_launches["moe_train_path"])
     for row in rows:
         row["path"] = carried_by[row["name"]]
         row["launches"] = launches[row["path"]][row["name"]]
-        row["also_on"] = {path: n[row["name"]] for path, n in scenario.items()
+        row["also_on"] = {path: n[row["name"]] for path, n in also.items()
                           if n[row["name"]]}
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1790,6 +2263,9 @@ def main() -> None:
     # the hybrid path runs both serving kernels, and the baselines run
     # aggregate; their launches stand here
     emit({"hybrid_serve_path_launches": launches["hybrid_serve_path"]})
+    emit({"moe_serve_path_launches": launches["moe_serve_path"]})
+    emit({"vlm_serve_path_launches": launches["vlm_serve_path"]})
+    emit({"moe_train_path_launches": train_launches["moe_train_path"]})
     emit({"baseline_path_launches": baseline})
     emit({"scenario_path_launches": scenario})
     emit({"train_path_launches": train_launches})

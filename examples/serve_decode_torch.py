@@ -1,20 +1,28 @@
 """Serving example for the PyTorch/CUDA port: batched prefill + greedy
 autoregressive decode with the KV/SSM cache.
 
-The port's counterpart of ``examples/serve_decode.py``: one prefill over a
-batch of prompts (from ``synthetic_lm_batches``) with room for
-``--gen`` tokens, then token-by-token greedy decode over the first
-``vocab`` logits. On a card, prefill runs the hand-written kernels in
-every layer (their plain versions on the CPU): flash attention for the
-dense and hybrid families, the SSD scan for the ssm and hybrid ones;
-decode attends over the cache with plain attention and steps the SSM
-recurrence in plain PyTorch.
+The port's counterpart of ``examples/serve_decode.py`` (whose default is
+Mixtral-8x7B, as this one's is): one prefill over a batch of prompts
+(from ``synthetic_lm_batches``; a vlm prompt also carries ``n_patches``
+seeded N(0, 1) image patches before its tokens) with room for ``--gen``
+tokens, then token-by-token greedy decode over the first ``vocab``
+logits. On a card, prefill runs the hand-written kernels in every layer
+(their plain versions on the CPU): flash attention for the dense, moe,
+vlm and hybrid families (windowed for Mixtral's 4,096-token sliding
+window), the SSD scan for the ssm and hybrid ones; decode attends over
+the cache with plain attention and steps the SSM recurrence in plain
+PyTorch.
 
 Run on the card (full width, random weights from a seed):
 
+    PYTHONPATH=src python examples/serve_decode_torch.py
+    PYTHONPATH=src python examples/serve_decode_torch.py internvl2_2b
     PYTHONPATH=src python examples/serve_decode_torch.py llama3_2_3b
     PYTHONPATH=src python examples/serve_decode_torch.py mamba2_2_7b
-    PYTHONPATH=src python examples/serve_decode_torch.py hymba_1_5b
+
+Mixtral-8x7B's 32 layers are 93.7 GB in bf16, more than one 80 GB card
+holds, so at full size it serves its first ``--layers`` layers (default
+16, 47.2 GB) and prints the cut; ``--layers N`` cuts any config.
 
 or on the CPU with the reduced config (the kernels' plain versions):
 
@@ -40,18 +48,23 @@ from repro_torch.models import model as M  # noqa: E402
 BATCH = 4
 
 
-def serve(cfg, params, prompts, gen_len: int):
-    """Prefill ``prompts`` [B, S] (a tensor on the params' device) with
-    room for ``gen_len`` tokens, then greedy-decode ``gen_len`` tokens.
-    Returns (generated [B, gen_len] numpy, cache, seconds of prefill,
-    seconds of decode)."""
+# full-size configs that do not fit one 80 GB card whole: the layers
+# served unless --layers says otherwise
+DEFAULT_LAYERS = {"mixtral_8x7b": 16}
+
+
+def serve(cfg, params, batch, gen_len: int):
+    """Prefill ``batch`` (``tokens`` [B, S], and ``patches`` for vlm;
+    tensors on the params' device) with room for ``gen_len`` tokens, then
+    greedy-decode ``gen_len`` tokens. Returns (generated [B, gen_len]
+    numpy, cache, seconds of prefill, seconds of decode)."""
     prefill = make_prefill_step(cfg, decode_budget=gen_len)
     step = make_serve_step(cfg)
-    dev = prompts.device
+    dev = batch["tokens"].device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, batch)
     tok = logits[:, -1:, :cfg.vocab].argmax(dim=-1)
     sync()
     t1 = time.perf_counter()
@@ -68,30 +81,48 @@ def serve(cfg, params, prompts, gen_len: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("arch", nargs="?", default="llama3_2_3b")
+    ap.add_argument("arch", nargs="?", default="mixtral_8x7b")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's reduced() form")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--prompt", type=int, default=2048)
+    ap.add_argument("--prompt", type=int, default=2048,
+                    help="text tokens a prompt (a vlm prompt adds its "
+                         "n_patches image patches)")
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers (default: all; 16 for "
+                         "full-size mixtral_8x7b)")
     args = ap.parse_args(argv)
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu (with "
                            "--reduced) to run on the CPU")
     cfg = (base.get_reduced if args.reduced else base.get_config)(args.arch)
+    layers = args.layers or (None if args.reduced else
+                             DEFAULT_LAYERS.get(base.canonical_id(args.arch)))
+    if layers and layers != cfg.n_layers:
+        print(f"cut: {layers} of {cfg.n_layers} layers")
+        cfg = cfg.replace(n_layers=layers)
     cfg = cfg.replace(use_pallas=True)
     gen = torch.Generator(device=args.device).manual_seed(0)
     t0 = time.perf_counter()
     params = M.init_params(cfg, gen, device=args.device)
     init_s = time.perf_counter() - t0
-    batch = next(synthetic_lm_batches(cfg.vocab, args.prompt, BATCH, 1,
-                                      seed=1))
-    prompts = torch.as_tensor(batch["tokens"].astype(np.int64),
-                              device=args.device)
-    out, cache, pre_s, dec_s = serve(cfg, params, prompts, args.gen)
+    data = next(synthetic_lm_batches(cfg.vocab, args.prompt, BATCH, 1,
+                                     seed=1))
+    batch = {"tokens": torch.as_tensor(data["tokens"].astype(np.int64),
+                                       device=args.device)}
+    if cfg.family == "vlm":
+        patches = np.random.default_rng(2).standard_normal(
+            (BATCH, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        batch["patches"] = torch.as_tensor(patches, device=args.device).to(
+            M.torch_dtype(cfg))
+    out, cache, pre_s, dec_s = serve(cfg, params, batch, args.gen)
     window = f"  window={cache['k'].shape[2]}" if "k" in cache else ""
+    patches = (f"  patches={cfg.n_patches}" if cfg.family == "vlm"
+               else "")
     print(f"arch={cfg.name}  device={args.device}  batch={BATCH}  "
-          f"prompt={args.prompt}  generated={out.shape[1]} tokens{window}")
+          f"prompt={args.prompt}{patches}  generated={out.shape[1]} "
+          f"tokens{window}")
     print(f"init {init_s:.2f} s  prefill {pre_s * 1e3:.1f} ms  decode "
           f"{dec_s * 1e3 / max(args.gen - 1, 1):.2f} ms/token")
     for b in range(2):

@@ -5,9 +5,11 @@ Field for field the same dataclass as the JAX package's
 values. ``get_config``/``get_reduced`` resolve modules inside
 ``repro_torch.configs``. The port carries the ViT config, the four
 dense causal LMs (``llama3_2_3b``, ``qwen2_5_3b``, ``gemma_2b``,
-``internlm2_1_8b``), the ssm ``mamba2_2_7b`` and the hybrid
-``hymba_1_5b``, each with its ``reduced()`` form; the other families
-come with ROADMAP queue 1, "The rest of the model zoo".
+``internlm2_1_8b``), the ssm ``mamba2_2_7b``, the hybrid
+``hymba_1_5b``, the moe ``mixtral_8x7b`` and ``grok_1_314b`` and the
+vlm ``internvl2_2b``, each with its ``reduced()`` form; the audio
+family (``whisper_small``) comes with ROADMAP queue 1, "The rest of the
+model zoo".
 """
 from __future__ import annotations
 

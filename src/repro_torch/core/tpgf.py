@@ -38,7 +38,7 @@ class TPGFOut(NamedTuple):
     loss_client: torch.Tensor
     loss_server: torch.Tensor
     w_client: torch.Tensor
-    aux: Any                     # MoE router load-balance loss
+    aux: Any                     # MoE router load-balance loss (prefix)
 
 
 class TPGFSplitOut(NamedTuple):
@@ -162,7 +162,12 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
     view), ``server_p`` rows ``[d:]``. ``wcfg`` is the matching
     ``supernet.width_cfg``: the client forward runs on the slice, while the
     local head and the server suffix stay full width (the smashed data is
-    full ``d_model``). ``g_client`` comes back aligned with the slice."""
+    full ``d_model``). ``g_client`` comes back aligned with the slice.
+
+    ``aux`` is the client prefix's MoE router loss, detached: it is a
+    metric, and no gradient flows through it (the reference pulls a zero
+    cotangent for it); the server's own router loss is inside
+    ``loss_server``."""
     d_s = cfg.split_stack_len - d
     c_paths, c_leaves = grad_leaves(client_p)
     s_paths, s_leaves = grad_leaves(server_p)
@@ -201,6 +206,8 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
                               use_pallas=cfg.use_pallas)
     w_c, g_server_params, g_client = _fault_degrade(
         server_available, w_c, g_server_params, g_client, g_client_local)
+    if isinstance(aux_prefix, torch.Tensor):
+        aux_prefix = aux_prefix.detach()
     return TPGFSplitOut(g_client, g_server_params,
                         tree_unflatten(l_paths, g_local),
                         loss_client, loss_server, w_c, aux_prefix)

@@ -70,11 +70,14 @@ def make_train_step(cfg: ModelConfig, opt=None):
     returns ``(params, opt_state, metrics)``, having updated ``params``
     and ``opt_state`` in place (see ``apply_in_place``), with metrics
     ``loss_client``, ``loss_server``, ``w_client`` (means over the
-    microbatches) and ``aux`` as fp32 device scalars. The default
+    microbatches) and ``aux`` as fp32 device scalars; ``aux`` is the
+    client prefix's MoE router loss with one microbatch and 0.0 with
+    more, as the reference reports it. The default
     optimizer is ``adamw(3e-4, weight_decay=0.1)`` with the config's
     ``adam_moment_dtype``. ``batch`` holds ``tokens`` and ``labels``
     [B, S] (and optionally ``valid``), B a multiple of
-    ``cfg.microbatches``.
+    ``cfg.microbatches``; a vlm batch also holds ``patches``
+    [B, n_patches, d_model].
 
     A family with attention trains only with ``use_pallas=False``: the
     flash kernel has no backward (nor has the reference's, whose step

@@ -47,9 +47,20 @@ def train_config(arch: str, reduced: bool):
 def device_batches(cfg, seq: int, batch: int, steps: int, device,
                    seed: int = 1) -> Iterable[dict]:
     """The launcher's data on ``device``: ``synthetic_lm_batches`` with the
-    reference's seed."""
+    reference's seed; a vlm batch gets zero ``patches`` [batch,
+    n_patches, d_model] in the config's dtype, as the reference's
+    launcher gives it."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "device_batches: the audio family's frames come with ROADMAP "
+            "queue 1 item 6, \"The rest of the model zoo\"")
     for b in synthetic_lm_batches(cfg.vocab, seq, batch, steps, seed=seed):
-        yield {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        out = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        if cfg.family == "vlm":
+            out["patches"] = torch.zeros(
+                (batch, cfg.n_patches, cfg.d_model), dtype=M.torch_dtype(cfg),
+                device=device)
+        yield out
 
 
 def train(step_fn, params, opt_state, batches: Iterable[dict], *,

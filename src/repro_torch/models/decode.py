@@ -1,6 +1,9 @@
-"""KV/SSM-cache serving path for the LM families (dense, ssm, hybrid):
-prefill + single-token decode, the JAX package's ``models/decode.py``
-for those families.
+"""KV/SSM-cache serving path for the LM families (dense, moe, vlm, ssm,
+hybrid): prefill + single-token decode, the JAX package's
+``models/decode.py`` for those families. A moe layer attends as a dense
+one and runs its mixture of experts on the one new token; a vlm prompt
+carries its image patches into the prefill (the cache then starts after
+``n_patches + S`` positions), and decode embeds tokens alone.
 
 Cache layout (stacked over layers, mirroring the super-network stack):
   attention:  k, v      [L, B, W, K, hd]  post-rope keys and values
@@ -13,8 +16,10 @@ Cache layout (stacked over layers, mirroring the super-network stack):
               idx       int               next position to decode
 
 W is the rolling window: ``cache_window`` gives the arch's sliding window
-(or ``long_context_window`` past ``LONG_CONTEXT_THRESHOLD``), else the
-whole sequence; slot = position % W.
+(Mixtral's 4,096, or ``long_context_window`` past
+``LONG_CONTEXT_THRESHOLD``), else the whole sequence; slot = position % W.
+A prompt longer than W keeps its last W positions, rolled so that each
+sits in its slot.
 
 Two deliberate departures from the reference, each held by
 ``tests/test_torch_decode.py``:
@@ -38,7 +43,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import (_causal, _head_logits, _row,
-                                      check_family, embed_inputs, final_norm,
+                                      check_family, embed_inputs,
+                                      embed_tokens, ffn, final_norm,
                                       layer_role, run_stack, stack_len,
                                       torch_dtype)
 
@@ -70,7 +76,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     c: Dict[str, Any] = {
         "idx": 0,
         "pos": torch.full((batch, W), -1, dtype=torch.int32, device=device)}
-    if role in ("dense", "hybrid"):
+    if role in ("dense", "moe", "hybrid"):
         shape = (cfg.n_layers, batch, W, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         c["k"] = torch.zeros(shape, dtype=dtype, device=device)
@@ -92,7 +98,8 @@ def prefill(cfg: ModelConfig, params, batch, decode_budget: int = 0):
 
     ``decode_budget`` reserves cache room for later ``decode_step`` calls
     (ignored when the rolling window is already smaller than the prompt).
-    Returns (logits [B, S, V], cache).
+    A vlm batch holds ``patches`` beside ``tokens``. Returns (logits
+    [B, S, V], cache), S counting the patches.
     """
     _check_servable(cfg)
     h, pos = embed_inputs(cfg, params, batch)
@@ -150,7 +157,7 @@ def decode_step(cfg: ModelConfig, params, cache, token):
     role = layer_role(cfg)
     B = token.shape[0]
     idx = int(cache["idx"])
-    h, _ = embed_inputs(cfg, params, {"tokens": token})
+    h = embed_tokens(cfg, params, token)
     if "k" in cache:
         pos_q = torch.full((B, 1), idx, dtype=torch.int32, device=h.device)
         kc_all, vc_all, pos = cache["k"], cache["v"], cache["pos"]
@@ -161,7 +168,7 @@ def decode_step(cfg: ModelConfig, params, cache, token):
     for i in range(stack_len(stack)):
         p = _row(stack, i)
         x = L.apply_norm(cfg, h, p, "attn_norm")
-        if role in ("dense", "hybrid"):
+        if role in ("dense", "moe", "hybrid"):
             q, k, v = L.project_qkv(cfg, p["attn"], x, x)
             q = L.apply_rope(q, pos_q, cfg.rope_theta)
             k = L.apply_rope(k, pos_q, cfg.rope_theta)
@@ -176,7 +183,7 @@ def decode_step(cfg: ModelConfig, params, cache, token):
                                    "conv": cache["ssm_conv"][i]})
             cache["ssm_h"][i] = st["h"]
             cache["ssm_conv"][i] = st["conv"]
-        if role == "dense":
+        if role in ("dense", "moe"):
             h = h + out
         elif role == "ssm":
             h = h + s
@@ -184,8 +191,7 @@ def decode_step(cfg: ModelConfig, params, cache, token):
             h = h + p["branch_scale_attn"] * out + \
                 p["branch_scale_ssm"] * s
         if role != "ssm":
-            x = L.apply_norm(cfg, h, p, "mlp_norm")
-            h = h + L.mlp_apply(cfg, p["mlp"], x)
+            h = ffn(cfg, role, p, h)[0]
     logits = _head_logits(cfg, params, final_norm(cfg, params, h))
     cache["idx"] = idx + 1
     return logits, cache

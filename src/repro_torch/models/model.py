@@ -1,9 +1,14 @@
 """The stacked-layer model: the ``vit`` family ((patch embed) -> the layer
 stack -> (mean pool, head)) and the causal LM families ((token embed) ->
 the layer stack -> (final norm, untied unembed)): ``dense`` (rope'd causal
-attention and an MLP per layer), ``ssm`` (one Mamba-2 mixer per layer,
-attention-free) and ``hybrid`` (attention and a Mamba-2 mixer side by
-side on one normed input, then an MLP).
+attention and an MLP per layer), ``moe`` (the same attention, then a
+top-k mixture of experts in place of the MLP, whose router loss each
+layer adds to ``aux``), ``vlm`` (the dense layers over a prefix of
+projected image patches, ``batch["patches"] @ vision_proj``, before the
+token embeddings; the losses skip the patch positions), ``ssm`` (one
+Mamba-2 mixer per layer, attention-free) and ``hybrid`` (attention and a
+Mamba-2 mixer side by side on one normed input, then an MLP). The
+``audio`` family (an encoder-decoder) is not ported yet.
 
 The stacked tree (leading ``L`` axis) is the paper's weight-sharing
 super-network: a client subnetwork of depth ``d`` is the row slice
@@ -27,7 +32,7 @@ sharding and multi-device").
 
 Public surface (the JAX module's names):
   init_params(cfg, gen, device)
-  layer_role / embed_inputs / run_stack
+  layer_role / embed_tokens / embed_inputs / run_stack
   prefix_apply(cfg, params, batch, d)     -> (z, aux)   smashed data
   client_apply(cfg, client_params, batch) -> (z, aux)
   local_logits / local_loss               the client's fault-tolerant head
@@ -48,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -55,11 +61,12 @@ Params = Dict[str, Any]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("vit", "dense", "ssm", "hybrid"):
+    if cfg.family not in ("vit", "dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family={cfg.family!r}: the port runs the vit, dense, ssm and "
-            "hybrid families only so far (ROADMAP queue 1, \"The rest of "
-            "the model zoo\")")
+            f"family={cfg.family!r}: the port runs the vit, dense, moe, "
+            "vlm, ssm and hybrid families only so far; the audio "
+            "encoder-decoder is ROADMAP queue 1 item 6, \"The rest of the "
+            "model zoo\"")
 
 
 def layer_role(cfg: ModelConfig) -> str:
@@ -76,19 +83,23 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     """One layer's parameter tree for the config's role: "enc" (vit) and
-    "dense" have the same leaves; "ssm" a norm and the mixer; "hybrid"
-    both, plus a per-channel scale for each branch."""
+    "dense" (also vlm) have the same leaves; "moe" has ``moe`` in place
+    of ``mlp``; "ssm" a norm and the mixer; "hybrid" both, plus a
+    per-channel scale for each branch."""
     role = layer_role(cfg)
     dm = cfg.d_model
     p: Params = {}
-    if role in ("enc", "dense", "hybrid", "ssm"):
+    if role in ("enc", "dense", "moe", "hybrid", "ssm"):
         p.update({f"attn_norm_{k}": v
                   for k, v in L.norm_params(cfg, dm, dtype).items()})
-    if role in ("enc", "dense", "hybrid"):
+    if role in ("enc", "dense", "moe", "hybrid"):
         p["attn"] = L.attn_params(cfg, gen, dtype)
         p.update({f"mlp_norm_{k}": v
                   for k, v in L.norm_params(cfg, dm, dtype).items()})
-        p["mlp"] = L.mlp_params(cfg, gen, dtype)
+        if role == "moe":
+            p["moe"] = MOE.moe_params(cfg, gen, dtype)
+        else:
+            p["mlp"] = L.mlp_params(cfg, gen, dtype)
     if role in ("ssm", "hybrid"):
         p["ssm"] = SSM.ssm_params(cfg, gen, dtype)
     if role == "hybrid":
@@ -98,8 +109,17 @@ def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
 
 
 def _stack(cfg: ModelConfig, gen: torch.Generator, n: int, dtype) -> Params:
-    per = [_layer_params(cfg, gen, dtype) for _ in range(n)]
-    return tree_map(lambda *xs: torch.stack(xs), *per)
+    """``n`` layers drawn in turn, each copied into its row of a stacked
+    tree allocated once: the stack never exists twice (Mixtral-8x7B's 16
+    layers are 47 GB in bf16)."""
+    layer = _layer_params(cfg, gen, dtype)
+    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), layer)
+    for i in range(n):
+        if i:
+            layer = _layer_params(cfg, gen, dtype)
+        tree_map(lambda row, x: row[i].copy_(x), out, layer)
+        del layer
+    return out
 
 
 def _local_head(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -147,6 +167,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         p.update(_local_head(cfg, gen))
     else:
         p["embed"] = L.normal(gen, (cfg.padded_vocab, dm), dtype)
+        if cfg.family == "vlm":
+            p["vision_proj"] = L.dense_init(gen, dm, dm, dtype)
         p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
         p["final_norm"] = L.norm_params(cfg, dm, dtype)
         p["unembed"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
@@ -195,12 +217,25 @@ def _ssm_block(cfg: ModelConfig, p, h, emit: bool):
     return SSM.ssm_apply(cfg, p["ssm"], x), {}
 
 
+def ffn(cfg: ModelConfig, role: str, p, h):
+    """The layer's feed-forward half on the residual ``h``: (h + the MLP,
+    or the moe layer's mixture of experts, of the normed input; the moe
+    layer's router loss, else None)."""
+    x = L.apply_norm(cfg, h, p, "mlp_norm")
+    if role == "moe":
+        y, aux = MOE.moe_apply(cfg, p["moe"], x)
+        return h + y, aux
+    return h + L.mlp_apply(cfg, p["mlp"], x), None
+
+
 def _layer(cfg: ModelConfig, role: str, p, h, *, positions, causal, window,
            use_rope: bool = False, emit: bool = False):
-    """One layer of ``role``; returns (h, the layer's cache entries)."""
+    """One layer of ``role``; returns (h, aux, the layer's cache
+    entries): aux is the moe layer's router loss (fp32), None for the
+    other roles."""
     if role == "ssm":
         s, ys = _ssm_block(cfg, p, h, emit)
-        return h + s, ys
+        return h + s, None, ys
     out, (k, v) = _attn_block(cfg, p, h, positions=positions, causal=causal,
                               window=window, use_rope=use_rope)
     ys = {"k": k, "v": v}
@@ -210,8 +245,7 @@ def _layer(cfg: ModelConfig, role: str, p, h, *, positions, causal, window,
         h = h + p["branch_scale_attn"] * out + p["branch_scale_ssm"] * s
     else:
         h = h + out
-    x = L.apply_norm(cfg, h, p, "mlp_norm")
-    return h + L.mlp_apply(cfg, p["mlp"], x), ys
+    return (*ffn(cfg, role, p, h), ys)
 
 
 def _row(tree, i: int):
@@ -242,8 +276,9 @@ def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
     ys stacks each layer's cache entries along a leading L axis — the
     post-rope "k" and "v" [L, B, S, K, hd] of an attention layer, the
     final SSM state "ssm_h" [L, B, nh, hd, st] (fp32) and the conv tail
-    "ssm_conv" [L, B, k-1, d_inner] of a mixer. aux is the MoE router
-    loss, 0.0 for the families the port runs.
+    "ssm_conv" [L, B, k-1, d_inner] of a mixer. aux is the sum of the
+    moe layers' router losses in fp32, as the reference's scan carries
+    it, and 0.0 for the other families.
 
     With ``cfg.remat``, while grad mode is on and without ``emit``, each
     layer runs under ``torch.utils.checkpoint`` (non-reentrant): only its
@@ -256,39 +291,52 @@ def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
 
     def layer(p, x):
         return _layer(cfg, role, p, x, positions=positions, causal=causal,
-                      window=window, use_rope=use_rope)[0]
+                      window=window, use_rope=use_rope)[:2]
 
     per = []
+    aux = 0.0
     for row in _rows(stack, stack_len(stack)):
         if remat:
-            h = checkpoint(layer, row, h, use_reentrant=False,
-                           preserve_rng_state=False)
-            continue
-        h, ys = _layer(cfg, role, row, h, positions=positions,
-                       causal=causal, window=window, use_rope=use_rope,
-                       emit=emit)
-        if emit:
-            per.append(ys)
+            h, a = checkpoint(layer, row, h, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            h, a, ys = _layer(cfg, role, row, h, positions=positions,
+                              causal=causal, window=window,
+                              use_rope=use_rope, emit=emit)
+            if emit:
+                per.append(ys)
+        if a is not None:
+            aux = aux + a
     if emit:
-        return h, 0.0, {k: torch.stack([ys[k] for ys in per])
+        return h, aux, {k: torch.stack([ys[k] for ys in per])
                         for k in (per[0] if per else {})}
-    return h, 0.0
+    return h, aux
 
 
 # ---------------------------------------------------------------- embeddings
 
+def embed_tokens(cfg: ModelConfig, params: Params, tokens):
+    """``embed[tokens]·√d_model``: the LM families' token embedding."""
+    emb = params["embed"]
+    # the reference's weak-typed scalar is rounded to the embedding's
+    # dtype before the product, as this 0-d tensor is
+    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype,
+                         device=emb.device)
+    return emb[tokens.long()] * scale
+
+
 def embed_inputs(cfg: ModelConfig, params: Params, batch) -> Tuple[Any, Any]:
     """Returns (h [B,S,dm], positions [B,S]). vit: the reference's
     patchify order (rows of patches, then columns, then pixels and
-    channels); the LM families: ``embed[tokens]·√d_model``."""
+    channels); the LM families: ``embed_tokens``, and for vlm a batch
+    with ``patches`` [B, n_patches, dm] puts ``patches @ vision_proj``
+    before the tokens."""
     check_family(cfg)
     if cfg.family != "vit":
-        emb = params["embed"]
-        # the reference's weak-typed scalar is rounded to the embedding's
-        # dtype before the product, as this 0-d tensor is
-        scale = torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype,
-                             device=emb.device)
-        h = emb[batch["tokens"].long()] * scale
+        h = embed_tokens(cfg, params, batch["tokens"])
+        if cfg.family == "vlm" and "patches" in batch:
+            pe = batch["patches"].to(h.dtype) @ params["vision_proj"]
+            h = torch.cat([pe, h], dim=1)
         pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
         return h, pos
     img = batch["images"]
@@ -359,9 +407,13 @@ def _label_fields(cfg: ModelConfig, batch):
 
 
 def _xent(cfg: ModelConfig, logits, batch):
+    """The loss of ``logits`` against the batch's labels; vlm skips the
+    ``n_patches`` image positions."""
     labels, valid = _label_fields(cfg, batch)
     if cfg.family == "vit":
         return L.softmax_xent(logits, labels)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.n_patches:]
     return L.softmax_xent(logits, labels, valid=valid, vocab=cfg.vocab)
 
 

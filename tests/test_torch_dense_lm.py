@@ -254,8 +254,8 @@ def test_training_surfaces_train_and_the_engine_points_at_the_step():
     """The LM training surfaces run (the smashed data, both heads' losses
     and the TPGF gradients; ``tests/test_torch_lm_train.py`` holds them to
     the reference); the federated ``Engine`` still refuses an LM config,
-    as the reference's cannot run one, and names the train step; the moe
-    family is not ported."""
+    as the reference's cannot run one, and names the train step; the
+    audio family is not ported."""
     cfg = TB.get_reduced("llama3_2_3b")
     with pytest.raises(NotImplementedError, match="make_train_step"):
         Engine(cfg, 3, "ssfl", device="cpu")
@@ -274,5 +274,5 @@ def test_training_surfaces_train_and_the_engine_points_at_the_step():
     assert sorted(out.grads) == sorted(params)
     assert out.grads["embed"].abs().sum() > 0
     with pytest.raises(NotImplementedError, match="rest of the model zoo"):
-        TM.init_params(TB.get_reduced("llama3_2_3b").replace(family="moe"),
+        TM.init_params(TB.get_reduced("llama3_2_3b").replace(family="audio"),
                        torch.Generator(), device="cpu")

@@ -23,7 +23,10 @@ S not a multiple of the kernel's chunk, S = 1, an odd number of heads, no
 D, and dt near 1 with A = −16, where an unmasked upper half would
 overflow. One round of the scenario strategies ``unstable`` and ``hasfl``
 (width ladder, fused) launches the kernels of its path and agrees with the
-same round with the kernels off within 1e-4.
+same round with the kernels off within 1e-4. ``flash_attention`` at
+Mixtral-8x7B's windowed prefill shape (S 8,192, window 4,096), and a
+reduced Mixtral prefill past its window: one launch a layer, kernels on
+vs off within 1e-4, the rolled cache.
 """
 import pytest
 
@@ -523,3 +526,59 @@ def test_scenario_round_on_the_card_launches_the_kernels(cuda, name):
     for path, x in tree_flatten_with_path(params):
         torch.testing.assert_close(x, tree_get(pparams, path), rtol=0,
                                    atol=1e-4, msg=str(path))
+
+
+@pytest.mark.parametrize("S", [8192, 8160])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_at_mixtrals_windowed_shape(cuda, dtype, tol,
+                                                           S):
+    """Mixtral-8x7B's prefill shape past its window: S 8,192 (and the
+    serve path's teacher-forced 8,160, not a whole tile), 32 query and 8
+    KV heads of 128, window 4,096 (the kernel skips the tiles behind the
+    window), at B 1."""
+    from repro_torch.kernels.flash_attention import ops as O, ref as R
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((1, S, 32, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((1, S, 8, 128), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, S, 8, 128), generator=g, device=cuda).to(dtype)
+    with torch.no_grad():
+        got = O.flash_attention(q, k, v, causal=True, window=4096)
+        want = R.flash_attention_ref(q, k, v, causal=True, window=4096)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_moe_prefill_past_its_window_on_the_card(cuda):
+    """Reduced Mixtral (window 16) over a 64-token prompt: with the
+    kernels on, ``flash_attention`` launches once a layer, with the
+    window; the logits and the rolled cache agree with the kernels off
+    (which launch nothing) within 1e-4, and every slot holds a position
+    of its own residue."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import init_params
+    cfg = get_reduced("mixtral_8x7b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=g, device=cuda)
+    out = {}
+    for on in (True, False):
+        before = flash_attention.launches
+        logits, cache = make_prefill_step(cfg.replace(use_pallas=on),
+                                          decode_budget=4)(
+            params, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before == (cfg.n_layers if on
+                                                     else 0)
+        out[on] = (logits, cache)
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(out[True][1]["k"], out[False][1]["k"],
+                               rtol=1e-4, atol=1e-4)
+    pos = out[True][1]["pos"]
+    W = cfg.sliding_window
+    assert pos.shape[1] == W
+    assert bool((pos % W == torch.arange(W, device=cuda)).all())
+    assert int(pos.min()) == 64 - W

@@ -216,7 +216,7 @@ def test_server_split_loss_gradients(setup, d):
 
 
 def test_other_families_raise():
-    cfg = TB.get_reduced("vit16_cifar").replace(family="moe")
+    cfg = TB.get_reduced("vit16_cifar").replace(family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert math.isclose(TB.get_config("vit16_cifar").d_model, 768)
