@@ -25,7 +25,8 @@ Phases, one JSON line each (plus the card's name and power limit as
      (``flash_attention`` also checked and timed at Mixtral-8x7B's
      windowed prefill shape, S 8,192 with window 4,096, its plain version
      at B 1 and SDPA with the window as a boolean mask, the kernel SDPA
-     took named, and at InternVL2-2B's),
+     took named, at InternVL2-2B's and at Whisper-small's decoder
+     prefill, 16 × 224 tokens, 12 heads of 64, multi-head),
      and ``fuse`` also in bf16 at the LM training path's largest client
      leaf (within one bf16 ulp; a ``kernel_bf16`` line);
      then, where the machine has ``ncu``, one ``ncu --set full`` profile
@@ -122,14 +123,29 @@ Phases, one JSON line each (plus the card's name and power limit as
      patches and 1,792 tokens: ``flash_attention`` 24 times a prefill,
      agreements within ``SERVE_LOGIT_TOL``, decode from 256 + 1,760
      positions;
- 16. moe train path — Mixtral-8x7B at full width, 2 layers (split depth
+ 16. audio serve path — Whisper-small whole (12 encoder and 12 decoder
+     layers, d_model 768, 12 heads of 64, gelu, layernorm; the decoder's
+     head tied) in bf16, 16 requests of 1,500 seeded N(0, 1) frames and
+     a 224-token decoder prompt: ``flash_attention`` 12 times a prefill
+     (each decoder layer; the encoder's attention is not causal and the
+     cross-attention is plain), agreements within
+     ``BF16_LOGIT_TOL["audio"]``, the cross-attention cache
+     ([12, 16, 1,500, 12, 64] keys and values) left by decode bit for
+     bit, the same agreements in fp32 at full size within
+     ``FP32_LOGIT_TOL``; it also prints the encoder's frames/s;
+ 17. moe train path — Mixtral-8x7B at full width, 2 layers (split depth
      1), through ``make_train_step`` with its config (bf16, remat, 4
      microbatches, AdamW with fp32 moments), 3 steps of 8 × 512 with the
      kernels off (flash has no backward): finite losses, the prefix's
      router aux finite and positive, no kernel launch; step wall,
-     tokens/s, peak memory, a profiled step. The three phases' launches
+     tokens/s, peak memory, a profiled step. These phases' launches
      get a line each, their seconds a ``phase_time`` line each;
- 17. lm train path — Mamba2-2.7B at full width and depth trained by
+ 18. audio train path — Whisper-small whole through ``launch/train.py``'s
+     loop with its config (bf16, remat, AdamW with fp32 moments), 3 steps
+     of 8 × 448 decoder tokens over zero frames, kernels off: finite
+     losses, no launch, ``make_train_step`` refusing ``use_pallas=True``;
+     step wall, tokens/s, peak memory, a profiled step;
+ 19. lm train path — Mamba2-2.7B at full width and depth trained by
      ``launch.steps.make_train_step`` with its config (bf16, remat, 4
      microbatches, AdamW with fp32 moments), 3 steps of 8 × 512 tokens
      from ``synthetic_lm_batches``, the serving weights freed first, with
@@ -142,15 +158,15 @@ Phases, one JSON line each (plus the card's name and power limit as
      weights: step-1 losses bit for bit, later ones within
      ``TRAIN_LOSS_RTOL``. Step wall, tokens/s, peak memory, a profiled
      step;
- 18. dense train path — Llama-3.2-3B at full width and depth trained
+ 20. dense train path — Llama-3.2-3B at full width and depth trained
      through ``launch/train.py``'s config and loop (one microbatch,
      bf16, remat, ``adamw(1e-3)``) with the kernels off, 3 steps of
      8 × 512: finite losses, no kernel launch, the same figures;
- 19. the ``kernels`` summary line; each kernel's ``launches`` come from
+ 21. the ``kernels`` summary line; each kernel's ``launches`` come from
      the path named beside it (counts set to 0 just before that path),
      and ``also_on`` lists their launches on the scenario paths and the
-     moe and vlm paths; the three training paths' launches get a line of
-     their own.
+     moe, vlm and audio paths; the training paths' launches get a line
+     of their own.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it; so does a machine without a CUDA device, and a
@@ -187,6 +203,7 @@ SSM_ARCH = "mamba2_2_7b"
 HYBRID_ARCH = "hymba_1_5b"
 MOE_ARCH = "mixtral_8x7b"
 VLM_ARCH = "internvl2_2b"
+AUDIO_ARCH = "whisper_small"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # Mixtral-8x7B's 32 layers are 93.7 GB in bf16, more than one 80 GB card:
 # it serves 16 of them (47.2 GB); its fp32 gate takes 4 (24.8 GB) and its
@@ -198,6 +215,11 @@ MOE_SERVE_LAYERS, MOE_FP32_LAYERS, MOE_TRAIN_LAYERS = 16, 4, 2
 MOE_SERVE_BATCH, MOE_SERVE_PROMPT = 2, 8192
 # InternVL2-2B whole: 4 prompts of 256 image patches and 1,792 tokens
 VLM_SERVE_TEXT = 1792
+# Whisper-small whole: 16 requests, each a 30 s window of 1,500 encoder
+# frames and a 224-token decoder prompt (the previous window's text, which
+# Whisper conditions on), then 32 decode steps: 224 + 32 <= 448, its text
+# context; it trains on 8 x 448 decoder tokens over zero frames
+AUDIO_SERVE_BATCH, AUDIO_SERVE_PROMPT, AUDIO_TRAIN_SEQ = 16, 224, 448
 # ssd_scan against its plain version: y and h within this much of their
 # largest magnitude, the reference kernel's own bar (test_kernels.py)
 SSD_TOL = 1e-4
@@ -228,8 +250,12 @@ SERVE_LOGIT_TOL = 2e-2
 # prefill); the limit stands 37 % above the largest. In fp32 at 4 layers
 # no routing differs and the agreements read 5.9e-7 to 9.5e-4: that is
 # the gate on the kernel.
+# The audio family in bf16 starts at the dense family's limit: its
+# decoder runs 12 layers, flash in each, over a 12-layer encoder that
+# both runs share (the encoder runs no kernel)
 BF16_LOGIT_TOL = {"dense": SERVE_LOGIT_TOL, "vlm": SERVE_LOGIT_TOL,
-                  "ssm": 0.2, "hybrid": 5e-2, "moe": 0.75}
+                  "ssm": 0.2, "hybrid": 5e-2, "moe": 0.75,
+                  "audio": SERVE_LOGIT_TOL}
 FP32_LOGIT_TOL = 1e-3
 # in fp32, where two runs of one model (kernels on and off, or the
 # teacher-forced prefill against the full one) first route a token apart,
@@ -615,16 +641,19 @@ def _top_device_kernel(call) -> str:
     return top.key[:100]
 
 
-def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, build_log):
+def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
+                build_log):
     """``flash_attention`` against its plain version on the card: the
     serve path's shape and Hymba's in bf16 and fp32, Mixtral's windowed
-    shapes (S 8,192 and its teacher-forced 8,160, window 4,096) and
-    InternVL2's, a window, MQA, every
+    shapes (S 8,192 and its teacher-forced 8,160, window 4,096),
+    InternVL2's and Whisper's decoder (multi-head, head_dim 64, S 224),
+    a window, MQA, every
     head dim, ragged S (one row past a tile), a window across tile edges,
     Sq = 1, Sq and Skv unequal, and non-causal cases; timed in bf16 at
-    the serve path's shape and at Hymba's, Mixtral's and InternVL2's,
-    each beside SDPA and its bound. ``moe_shape`` is (B, S, H, K, hd,
-    window). At Mixtral's shape the plain version runs at B 1 (its fp32
+    the serve path's shape and at Hymba's, Mixtral's, InternVL2's and
+    Whisper's, each beside SDPA and its bound. ``moe_shape`` is (B, S,
+    H, K, hd, window). At Mixtral's shape the plain version runs at B 1
+    (its fp32
     [B, H, S, S] scores at B 2 would not fit beside their copies), and
     SDPA takes the window as a boolean mask; the kernel SDPA ran is named
     from a profiled call."""
@@ -638,6 +667,7 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, build_log):
     hb, hs, hh, hk, hhd = hybrid_shape
     mb, ms_moe, mh, mk, mhd, mwin = moe_shape
     vb, vs, vh, vk, vhd = vlm_shape
+    ab, as_, ah, ak, ahd = audio_shape
     # (key, (B, Sq, Skv, H, K, hd), causal, window)
     cases = [(f"path/{B}x{S}x{H}x{K}x{hd}", (B, S, S, H, K, hd), True, 0),
              (f"hymba/{hb}x{hs}x{hh}x{hk}x{hhd}", (hb, hs, hs, hh, hk, hhd),
@@ -650,6 +680,8 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, build_log):
                                 mh, mk, mhd), True, mwin),
              (f"internvl2/{vb}x{vs}x{vh}x{vk}x{vhd}",
               (vb, vs, vs, vh, vk, vhd), True, 0),
+             (f"whisper/{ab}x{as_}x{ah}x{ak}x{ahd}",
+              (ab, as_, as_, ah, ak, ahd), True, 0),
              ("window256", (1, S, S, H, K, hd), True, 256),
              ("mqa", (2, 512, 512, 8, 1, hd), True, 0),
              ("hd32", (1, 256, 256, 4, 2, 32), True, 0),
@@ -729,10 +761,14 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, build_log):
         for label, args, kw in (
                 ("mixtral", (mb, ms_moe, mh, mk, mhd),
                  dict(window=mwin, plain_b=1)),
-                ("internvl2", vlm_shape, {})):
+                ("internvl2", vlm_shape, {}),
+                ("whisper", audio_shape, {})):
             t = timed(*args, **kw)
             b_ms, b_by = bound(t[4], t[3], BF16_FLOPS_PER_S)
+            case = next(c for c in cases if c[0].startswith(label + "/"))
             at_shapes[label] = {
+                "max_abs_err": {dt: checks[f"{case[0]}/{dt}"]
+                                for dt in ("bfloat16", "float32")},
                 "shape": list(args), "window": kw.get("window", 0),
                 "ms": t[0], "plain_ms": t[1],
                 "plain_batch": kw.get("plain_b") or args[0],
@@ -1295,10 +1331,13 @@ def _config_fields(cfg):
     """The widths a serve or train line reports for ``cfg``'s family."""
     out = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab}
-    if cfg.family in ("dense", "moe", "vlm", "hybrid"):
+    if cfg.family in ("dense", "moe", "vlm", "hybrid", "audio"):
         out.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                    head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
                    sliding_window=cfg.sliding_window)
+    if cfg.is_encdec:
+        out.update(n_enc_layers=cfg.n_enc_layers, enc_frames=cfg.enc_frames,
+                   mlp=cfg.mlp, norm=cfg.norm)
     if cfg.family == "moe":
         out.update(n_experts=cfg.n_experts, top_k=cfg.top_k,
                    moe_dispatch=cfg.moe_dispatch)
@@ -1318,18 +1357,17 @@ def _n_patches(cfg) -> int:
 def _serve_inputs(cfg, batch: int, prompt: int):
     """A serve path's prompts on the card: ``tokens`` [batch, prompt] from
     ``synthetic_lm_batches`` (seed 1) and, for vlm, ``patches`` [batch,
-    n_patches, d_model] drawn N(0, 1) from seed 2 in the config's
-    dtype."""
+    n_patches, d_model], for audio ``frames`` [batch, enc_frames,
+    d_model], drawn N(0, 1) from seed 2 in the config's dtype."""
     import torch
     from repro_torch.data.synthetic import synthetic_lm_batches
-    from repro_torch.models.model import torch_dtype
+    from repro_torch.models.model import side_input_shapes, torch_dtype
     b = next(synthetic_lm_batches(cfg.vocab, prompt, batch, 1, seed=1))
     out = {"tokens": torch.as_tensor(b["tokens"], device="cuda").long()}
-    if cfg.family == "vlm":
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        out["patches"] = torch.randn(
-            (batch, cfg.n_patches, cfg.d_model), generator=gen,
-            device="cuda").to(torch_dtype(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, shape in side_input_shapes(cfg, batch).items():
+        out[name] = torch.randn(shape, generator=gen,
+                                device="cuda").to(torch_dtype(cfg))
     return out
 
 
@@ -1488,8 +1526,12 @@ def _cache_fields(name, cfg, cache):
     if not ok:
         die(f"{name}: the cache at idx {idx} does not hold position "
             f"% {W} in each slot (window {win})")
-    return {"slots": W, "idx": idx, "wrapped": wrapped,
-            "pos_min": int(pos[filled].min()), "pos_max": int(pos.max())}
+    out = {"slots": W, "idx": idx, "wrapped": wrapped,
+           "pos_min": int(pos[filled].min()), "pos_max": int(pos.max())}
+    for key in ("cross_k", "cross_v"):
+        if key in cache:
+            out[key] = list(cache[key].shape)
+    return out
 
 
 class _FlashWindows:
@@ -1567,12 +1609,22 @@ def _serve_agreements(cfg, params, inputs, fed):
                                  n0, cfg.n_layers))
     del probes, tf_probe
     cache_prefill = _cache_fields(cfg.name, cfg, cache)
+    # an audio decoder's cross-attention cache: set by the prefill, only
+    # read by decode
+    cross = {k: (cache[k], cache[k].clone()) for k in ("cross_k", "cross_v")
+             if k in cache}
     serve = make_serve_step(on)
     tf = []
     for t in range(n0, S):
         lg, cache = serve(params, cache, toks[:, t:t + 1])
         tf.append(lg)
     cache_decode = _cache_fields(cfg.name, cfg, cache)
+    for key, (held, before) in cross.items():
+        same = cache[key] is held and torch.equal(cache[key], before)
+        cache_decode[f"{key}_unchanged_by_decode"] = same
+        if not same:
+            die(f"{cfg.name}: decode changed or replaced cache[{key!r}]")
+    del cross
     d_cache = _rel_logit_diff(torch.cat(tf, 1), full[:, npch + n0:])
     return {"prefill_kernels_vs_plain": d_prefill,
             "decode_kernels_vs_plain": d_decode,
@@ -1671,6 +1723,10 @@ def phase_serve_path(name, arch, expect, *, batch=SERVE_BATCH,
         die(f"{name}: prefill logits {tuple(logits_on.shape)}, finite "
             f"{finite}")
     ntok = batch * (npch + prompt)
+    audio = ({"enc_frames": cfg.enc_frames,
+              "encoder_frames_per_s": batch * cfg.enc_frames / prefill_s,
+              "decoder_tokens_per_s": ntok / prefill_s}
+             if cfg.is_encdec else {})
     emit({"phase": name, "config": cfg.name, "dtype": cfg.dtype,
           **_config_fields(cfg), "layers_of": full_layers,
           "params": n_params, "init_s": init_s, "batch": batch,
@@ -1681,7 +1737,7 @@ def phase_serve_path(name, arch, expect, *, batch=SERVE_BATCH,
           "prefill_tokens_per_s": ntok / prefill_s,
           "decode_ms_per_step": decode_s * 1e3 / SERVE_GEN,
           "decode_tokens_per_s": batch * SERVE_GEN / decode_s,
-          "peak_mem_gb": peak_gb,
+          "peak_mem_gb": peak_gb, **audio,
           "generated_req0": gen_tokens[0, :8].tolist()})
 
     del logits_on, steps_on
@@ -1755,19 +1811,19 @@ def _ulp_gate(got, want):
     return worst, differ / n
 
 
-def _train_run(cfg, step_fn, opt, name, steps):
-    """``steps`` steps of ``step_fn`` from seed-0 weights on the card,
-    each timed after ``torch.cuda.synchronize()``; launch counts set to
-    0 just before the first step. Returns (params, opt_state, per-step
-    records, launches, peak GB, the last batch)."""
+def _train_run(cfg, step_fn, opt, name, steps, seq=TRAIN_SEQ):
+    """``steps`` steps of ``step_fn`` on batches of TRAIN_BATCH × ``seq``
+    from seed-0 weights on the card, each timed after
+    ``torch.cuda.synchronize()``; launch counts set to 0 just before the
+    first step. Returns (params, opt_state, per-step records, launches,
+    peak GB, the last batch)."""
     import torch
     from repro_torch.launch.train import device_batches, train
     from repro_torch.models.model import init_params
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     opt_state = opt.init(params)
-    batches = list(device_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, steps,
-                                  "cuda"))
+    batches = list(device_batches(cfg, seq, TRAIN_BATCH, steps, "cuda"))
     walls = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1785,7 +1841,7 @@ def _train_run(cfg, step_fn, opt, name, steps):
                                     out=lambda line: None)
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    ntok = TRAIN_BATCH * TRAIN_SEQ
+    ntok = TRAIN_BATCH * seq
     recs = []
     for rec, wall in zip(hist, walls):
         rec = {**rec, "wall_ms": wall * 1e3, "tokens_per_s": ntok / wall}
@@ -1989,6 +2045,49 @@ def phase_moe_train_path(arch, layers):
     return launches
 
 
+def phase_audio_train_path(arch):
+    """Whisper-small whole at its config (bf16, remat, one microbatch,
+    AdamW with the config's moment dtype) through ``launch/train.py``'s
+    loop with the kernels off, 3 steps of 8 × 448 decoder tokens over
+    zero frames (the launcher's): finite losses, no kernel launch; and
+    ``make_train_step`` must refuse ``use_pallas=True`` (the decoder's
+    self-attention is causal, and flash has no backward). Step wall,
+    tokens/s, peak memory, a profiled step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import param_count
+    cfg = get_config(arch)
+    try:
+        make_train_step(cfg.replace(use_pallas=True))
+        refusal = None
+    except NotImplementedError as exc:
+        refusal = str(exc)
+    if refusal is None:
+        die("audio_train_path: make_train_step accepted use_pallas=True")
+    step_fn, opt = make_train_step(cfg)
+    params, opt_state, recs, launches, peak_gb, last = _train_run(
+        cfg, step_fn, opt, "audio_train_path", TRAIN_STEPS,
+        seq=AUDIO_TRAIN_SEQ)
+    if any(launches.values()):
+        die(f"audio_train_path: a kernel launched: {launches}")
+    walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
+    wall_ms = statistics.median(walls)
+    emit({"phase": "audio_train_path", "config": cfg.name,
+          **_config_fields(cfg), "dtype": cfg.dtype,
+          "params": param_count(params), "remat": cfg.remat,
+          "microbatches": cfg.microbatches,
+          "split_depth": cfg.resolved_split_depth,
+          "moment_dtype": cfg.adam_moment_dtype, "batch": TRAIN_BATCH,
+          "seq": AUDIO_TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "launches": launches, "use_pallas_refused": refusal,
+          "step_wall_ms": wall_ms,
+          "tokens_per_s": TRAIN_BATCH * AUDIO_TRAIN_SEQ / (wall_ms / 1e3),
+          "peak_mem_gb": peak_gb})
+    _profile(lambda: step_fn(params, opt_state, last), wall_ms / 1e3,
+             "audio_train")
+    return launches
+
+
 def _is_port_kernel(name: str) -> bool:
     """A profiler row of one of the port's CUDA kernels (``csrc/``)."""
     return any(f"(anonymous namespace)::{k}" in name for k in PORT_KERNELS)
@@ -2163,6 +2262,7 @@ def main() -> None:
     lm = get_config(SERVE_ARCH)
     ssm, hybrid = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
     moe, vlm = get_config(MOE_ARCH), get_config(VLM_ARCH)
+    audio = get_config(AUDIO_ARCH)
     rows = [phase_fuse((d_max, cfg.d_model, cfg.d_ff),
                        _largest_client_leaf(ssm)),
             phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff),
@@ -2176,6 +2276,9 @@ def main() -> None:
                          moe.sliding_window),
                         (SERVE_BATCH, vlm.n_patches + VLM_SERVE_TEXT,
                          vlm.n_heads, vlm.n_kv_heads, vlm.resolved_head_dim),
+                        (AUDIO_SERVE_BATCH, AUDIO_SERVE_PROMPT,
+                         audio.n_heads, audio.n_kv_heads,
+                         audio.resolved_head_dim),
                         logs["flash_attention"]),
             phase_ssd_scan(*((SERVE_BATCH, SERVE_PROMPT, c.ssm_n_heads,
                               c.ssm_head_dim, c.ssm_state)
@@ -2236,8 +2339,20 @@ def main() -> None:
         {"flash_attention": vlm.n_layers}, prompt=VLM_SERVE_TEXT)
     gc.collect()
     torch.cuda.empty_cache()
+    # the decoder runs flash once a layer; the encoder and decode none
+    launches["audio_serve_path"] = timed_phase(
+        "audio_serve_path", phase_serve_path, "audio_serve_path",
+        AUDIO_ARCH, {"flash_attention": audio.n_layers},
+        batch=AUDIO_SERVE_BATCH, prompt=AUDIO_SERVE_PROMPT,
+        fp32_layers=audio.n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_launches = {"moe_train_path": timed_phase(
         "moe_train_path", phase_moe_train_path, MOE_ARCH, MOE_TRAIN_LAYERS)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches["audio_train_path"] = timed_phase(
+        "audio_train_path", phase_audio_train_path, AUDIO_ARCH)
     gc.collect()                      # the serving weights go first
     torch.cuda.empty_cache()
     train_launches["lm_train_path"] = phase_lm_train_path(SSM_ARCH)
@@ -2251,7 +2366,9 @@ def main() -> None:
                   "ssd_scan": "ssm_serve_path"}
     also = dict(scenario, moe_serve_path=launches["moe_serve_path"],
                 vlm_serve_path=launches["vlm_serve_path"],
-                moe_train_path=train_launches["moe_train_path"])
+                audio_serve_path=launches["audio_serve_path"],
+                moe_train_path=train_launches["moe_train_path"],
+                audio_train_path=train_launches["audio_train_path"])
     for row in rows:
         row["path"] = carried_by[row["name"]]
         row["launches"] = launches[row["path"]][row["name"]]
@@ -2265,6 +2382,7 @@ def main() -> None:
     emit({"hybrid_serve_path_launches": launches["hybrid_serve_path"]})
     emit({"moe_serve_path_launches": launches["moe_serve_path"]})
     emit({"vlm_serve_path_launches": launches["vlm_serve_path"]})
+    emit({"audio_serve_path_launches": launches["audio_serve_path"]})
     emit({"moe_train_path_launches": train_launches["moe_train_path"]})
     emit({"baseline_path_launches": baseline})
     emit({"scenario_path_launches": scenario})

@@ -4,14 +4,17 @@ autoregressive decode with the KV/SSM cache.
 The port's counterpart of ``examples/serve_decode.py`` (whose default is
 Mixtral-8x7B, as this one's is): one prefill over a batch of prompts
 (from ``synthetic_lm_batches``; a vlm prompt also carries ``n_patches``
-seeded N(0, 1) image patches before its tokens) with room for ``--gen``
-tokens, then token-by-token greedy decode over the first ``vocab``
-logits. On a card, prefill runs the hand-written kernels in every layer
-(their plain versions on the CPU): flash attention for the dense, moe,
-vlm and hybrid families (windowed for Mixtral's 4,096-token sliding
-window), the SSD scan for the ssm and hybrid ones; decode attends over
-the cache with plain attention and steps the SSM recurrence in plain
-PyTorch.
+seeded N(0, 1) image patches before its tokens, an audio prompt
+``enc_frames`` seeded N(0, 1) frames for the encoder, as the reference's
+``make_dummy_batch`` draws them, and its tokens go to the decoder) with
+room for ``--gen`` tokens, then token-by-token greedy decode over the
+first ``vocab`` logits. On a card, prefill runs the hand-written kernels
+in every layer (their plain versions on the CPU): flash attention for
+the dense, moe, vlm and hybrid families (windowed for Mixtral's
+4,096-token sliding window) and the audio decoder, the SSD scan for the
+ssm and hybrid ones; decode attends over the cache with plain attention
+(an audio decoder layer also over its cross-attention cache, set once
+by the prefill) and steps the SSM recurrence in plain PyTorch.
 
 Run on the card (full width, random weights from a seed):
 
@@ -19,6 +22,8 @@ Run on the card (full width, random weights from a seed):
     PYTHONPATH=src python examples/serve_decode_torch.py internvl2_2b
     PYTHONPATH=src python examples/serve_decode_torch.py llama3_2_3b
     PYTHONPATH=src python examples/serve_decode_torch.py mamba2_2_7b
+    PYTHONPATH=src python examples/serve_decode_torch.py whisper_small \
+        --prompt 224
 
 Mixtral-8x7B's 32 layers are 93.7 GB in bf16, more than one 80 GB card
 holds, so at full size it serves its first ``--layers`` layers (default
@@ -54,10 +59,11 @@ DEFAULT_LAYERS = {"mixtral_8x7b": 16}
 
 
 def serve(cfg, params, batch, gen_len: int):
-    """Prefill ``batch`` (``tokens`` [B, S], and ``patches`` for vlm;
-    tensors on the params' device) with room for ``gen_len`` tokens, then
-    greedy-decode ``gen_len`` tokens. Returns (generated [B, gen_len]
-    numpy, cache, seconds of prefill, seconds of decode)."""
+    """Prefill ``batch`` (``tokens`` [B, S], and ``patches`` for vlm,
+    ``frames`` for audio; tensors on the params' device) with room for
+    ``gen_len`` tokens, then greedy-decode ``gen_len`` tokens. Returns
+    (generated [B, gen_len] numpy, cache, seconds of prefill, seconds of
+    decode)."""
     prefill = make_prefill_step(cfg, decode_budget=gen_len)
     step = make_serve_step(cfg)
     dev = batch["tokens"].device
@@ -111,17 +117,16 @@ def main(argv=None):
                                      seed=1))
     batch = {"tokens": torch.as_tensor(data["tokens"].astype(np.int64),
                                        device=args.device)}
-    if cfg.family == "vlm":
-        patches = np.random.default_rng(2).standard_normal(
-            (BATCH, cfg.n_patches, cfg.d_model)).astype(np.float32)
-        batch["patches"] = torch.as_tensor(patches, device=args.device).to(
-            M.torch_dtype(cfg))
+    extra = M.side_input_shapes(cfg, BATCH)
+    for k, shape in extra.items():
+        x = np.random.default_rng(2).standard_normal(shape)
+        batch[k] = torch.as_tensor(x.astype(np.float32),
+                                   device=args.device).to(M.torch_dtype(cfg))
     out, cache, pre_s, dec_s = serve(cfg, params, batch, args.gen)
     window = f"  window={cache['k'].shape[2]}" if "k" in cache else ""
-    patches = (f"  patches={cfg.n_patches}" if cfg.family == "vlm"
-               else "")
+    shown = "".join(f"  {k}={shape[1]}" for k, shape in extra.items())
     print(f"arch={cfg.name}  device={args.device}  batch={BATCH}  "
-          f"prompt={args.prompt}{patches}  generated={out.shape[1]} "
+          f"prompt={args.prompt}{shown}  generated={out.shape[1]} "
           f"tokens{window}")
     print(f"init {init_s:.2f} s  prefill {pre_s * 1e3:.1f} ms  decode "
           f"{dec_s * 1e3 / max(args.gen - 1, 1):.2f} ms/token")

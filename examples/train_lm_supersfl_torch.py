@@ -8,6 +8,11 @@ at the end. It runs on the card; ``--device cpu`` runs it on the CPU:
     PYTHONPATH=src python examples/train_lm_supersfl_torch.py [arch]
     PYTHONPATH=src python examples/train_lm_supersfl_torch.py \\
         mamba2_2_7b --device cpu
+    PYTHONPATH=src python examples/train_lm_supersfl_torch.py \\
+        whisper_small --device cpu
+
+Every config of ``repro_torch.configs`` trains here; an audio batch
+carries zero encoder frames, as the reference's launcher gives them.
 """
 import os
 import subprocess

@@ -6,10 +6,9 @@ values. ``get_config``/``get_reduced`` resolve modules inside
 ``repro_torch.configs``. The port carries the ViT config, the four
 dense causal LMs (``llama3_2_3b``, ``qwen2_5_3b``, ``gemma_2b``,
 ``internlm2_1_8b``), the ssm ``mamba2_2_7b``, the hybrid
-``hymba_1_5b``, the moe ``mixtral_8x7b`` and ``grok_1_314b`` and the
-vlm ``internvl2_2b``, each with its ``reduced()`` form; the audio
-family (``whisper_small``) comes with ROADMAP queue 1, "The rest of the
-model zoo".
+``hymba_1_5b``, the moe ``mixtral_8x7b`` and ``grok_1_314b``, the
+vlm ``internvl2_2b`` and the audio encoder-decoder ``whisper_small``,
+each with its ``reduced()`` form: every config of the JAX package.
 """
 from __future__ import annotations
 
@@ -115,6 +114,12 @@ class ModelConfig:
     @property
     def split_stack_len(self) -> int:
         return self.n_enc_layers if self.is_encdec else self.n_layers
+
+    @property
+    def split_stack_name(self) -> str:
+        """The stack the client/server split cuts: the encoder's for an
+        encoder-decoder, else the only one."""
+        return "enc_layers" if self.is_encdec else "layers"
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

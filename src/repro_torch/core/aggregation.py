@@ -175,7 +175,7 @@ def aggregate_weighted(cfg: ModelConfig, global_params: Dict[str, Any],
         w = torch.where(_as_bool(mask, w.device), w,
                         torch.zeros((), dtype=torch.float32, device=w.device))
     pres = presence_mask(depths, cfg.split_stack_len, device=w.device)
-    sname = SN.split_stack_name(cfg)
+    sname = cfg.split_stack_name
     widths = None if widths is None else np.asarray(widths, np.float64)
     width_active = widths is not None and bool((widths < 1.0).any())
 

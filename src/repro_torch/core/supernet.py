@@ -41,10 +41,6 @@ _CLIENT_INPUT_KEYS = ("embed", "vision_proj", "patch_embed", "patch_bias",
 _LOCAL_KEYS = ("local_head", "local_head_bias")
 
 
-def split_stack_name(cfg: ModelConfig) -> str:
-    return "enc_layers" if cfg.is_encdec else "layers"
-
-
 def prefix(stack, d: int):
     return tree_map(lambda x: x[:d], stack)
 
@@ -192,7 +188,7 @@ def split_params(cfg: ModelConfig, params: Params, d=None,
     server suffix and the local head stay full width. The leaves are
     views of ``params``, not copies.
     """
-    sname = split_stack_name(cfg)
+    sname = cfg.split_stack_name
     client: Params = {}
     server: Params = {}
     local: Params = {}
@@ -214,7 +210,7 @@ def merge_params(cfg: ModelConfig, client: Params, server: Params,
                  local: Params) -> Params:
     """Inverse of ``split_params`` on depth-sliced views: the two stack
     slices concatenate back."""
-    sname = split_stack_name(cfg)
+    sname = cfg.split_stack_name
     out: Params = {}
     for k, v in client.items():
         if k == sname:

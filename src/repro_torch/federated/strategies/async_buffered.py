@@ -46,7 +46,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import aggregation as AGG
-from repro_torch.core import supernet as SN
 from repro_torch.federated import buffer as BUF
 from repro_torch.federated.strategies import base
 from repro_torch.federated.strategies.base import (RoundContext,
@@ -106,7 +105,7 @@ class BufferedAsync(UnstableParticipation):
         non-stack server leaves. Not the running view: entries of one
         round may flush at different times, and a shared view would
         re-apply another cohort's server movement."""
-        sname = SN.split_stack_name(engine.cfg)
+        sname = engine.cfg.split_stack_name
         params = engine.state.params
         view = {sname: tree_map(lambda full, nd: torch.cat([full[:d], nd], 0),
                                 params[sname], res.payload[sname])}

@@ -165,7 +165,7 @@ def scatter_client_rows(cfg, ws: Dict[str, Any], ids, client_trees,
     ``[d:]`` and the pruned channels of a width slice are written as
     zeros: presence masks the rows out at aggregation, and the
     per-coordinate width denominators the channels."""
-    sname = SN.split_stack_name(cfg)
+    sname = cfg.split_stack_name
     plan = SN.width_plan(cfg, width) if width < 1.0 else {}
     buf = ws["client_stack"]
     for i, tree in zip(ids, client_trees):

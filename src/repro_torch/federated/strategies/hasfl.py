@@ -75,7 +75,7 @@ class HASFL(SuperSFL):
         cfg, fleet = engine.cfg, engine.state.fleet
         dm = self._dm or engine.accountant.dm
         params = engine.state.params
-        sname = SN.split_stack_name(cfg)
+        sname = cfg.split_stack_name
         per_layer = sum(x.numel() // x.shape[0]
                         for x in tree_leaves(params[sname]))
         input_side = sum(x.numel() for x in tree_leaves(
@@ -107,7 +107,7 @@ class HASFL(SuperSFL):
 
     def cohort_step(self, engine, ctx, ws, d, ids) -> CohortResult:
         cfg, state = engine.cfg, engine.state
-        sname = SN.split_stack_name(cfg)
+        sname = cfg.split_stack_name
         base_server = SN.split_params(cfg, state.params, d)[1]
         srv_template, srv_full, base_state = base.cohort_server_opt(
             engine, cfg, sname, d)

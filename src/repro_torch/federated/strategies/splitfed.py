@@ -74,7 +74,7 @@ class SplitFedBase(Strategy):
 
     def init_round(self, engine, ctx: RoundContext) -> Dict[str, Any]:
         cfg, state = engine.cfg, engine.state
-        sname = SN.split_stack_name(cfg)
+        sname = cfg.split_stack_name
         ws = base.fleet_workspace(engine)
         # accumulators of the FedAvg over per-client server copies
         ws.update({"num_stack": tree_map(
@@ -92,7 +92,7 @@ class SplitFedBase(Strategy):
         every group's server copies start from the round's server
         branch."""
         cfg, state = engine.cfg, engine.state
-        sname = SN.split_stack_name(cfg)
+        sname = cfg.split_stack_name
         server_p = SN.split_params(cfg, state.params, d)[1]
         srv_template, srv_full, srv_slice = base.cohort_server_opt(
             engine, cfg, sname, d)
@@ -178,7 +178,7 @@ class SplitFedBase(Strategy):
         the split stack's rows ``[d:]`` over ``den_rows[d:]``, the
         non-stack server leaves over ``den_other``. A stalled client's
         unchanged copy counts like any other."""
-        sname = SN.split_stack_name(engine.cfg)
+        sname = engine.cfg.split_stack_name
         for copies in res.payload:
             count = len(copies)
             total = lambda *xs: torch.stack([x.float() for x in xs]).sum(0)
@@ -195,7 +195,7 @@ class SplitFedBase(Strategy):
 
     def aggregate(self, engine, ws):
         cfg, state = engine.cfg, engine.state
-        sname = SN.split_stack_name(cfg)
+        sname = cfg.split_stack_name
         dev = engine.device
         den_rows = ws["den_rows"]
         den = torch.as_tensor(np.maximum(den_rows, 1e-9),

@@ -59,7 +59,7 @@ from repro_torch.tree import tree_map, tree_structure
 class SuperSFL(Strategy):
 
     def init_round(self, engine, ctx: RoundContext) -> Dict[str, Any]:
-        sname = SN.split_stack_name(engine.cfg)
+        sname = engine.cfg.split_stack_name
         ws = base.fleet_workspace(engine)
         # running server view: full-L split stack + non-stack server leaves
         ws["server_view"] = {sname: dict(engine.state.params[sname])}
@@ -77,7 +77,7 @@ class SuperSFL(Strategy):
 
     def cohort_step(self, engine, ctx, ws, d, ids) -> CohortResult:
         cfg, state = engine.cfg, engine.state
-        sname = SN.split_stack_name(cfg)
+        sname = cfg.split_stack_name
         base_server = SN.split_params(cfg, state.params, d)[1]
         srv_template, srv_full, base_state = base.cohort_server_opt(
             engine, cfg, sname, d)
@@ -214,7 +214,7 @@ class SuperSFL(Strategy):
 
     def fold_server(self, engine, ws, d, ids, res) -> None:
         # the cohort trained stack rows [d:]; rows [:d] keep the view's
-        sname = SN.split_stack_name(engine.cfg)
+        sname = engine.cfg.split_stack_name
         server_p, sv = res.payload, ws["server_view"]
         sv[sname] = tree_map(lambda full, nd: torch.cat([full[:d], nd], 0),
                              sv[sname], server_p[sname])

@@ -77,14 +77,16 @@ def make_train_step(cfg: ModelConfig, opt=None):
     ``adam_moment_dtype``. ``batch`` holds ``tokens`` and ``labels``
     [B, S] (and optionally ``valid``), B a multiple of
     ``cfg.microbatches``; a vlm batch also holds ``patches``
-    [B, n_patches, d_model].
+    [B, n_patches, d_model], an audio batch ``frames`` [B, T_enc,
+    d_model].
 
-    A family with attention trains only with ``use_pallas=False``: the
-    flash kernel has no backward (nor has the reference's, whose step
-    fails there too). The ssm family trains with the kernels on: its
-    scan takes the plain ``ssd_chunked`` under autograd and Eq. 4 the
-    ``fuse`` kernel."""
-    if cfg.use_pallas and layer_role(cfg) in ("dense", "moe", "hybrid"):
+    A family with causal attention (the audio decoder's too) trains only
+    with ``use_pallas=False``: the flash kernel has no backward (nor has
+    the reference's, whose step fails there too). The ssm family trains
+    with the kernels on: its scan takes the plain ``ssd_chunked`` under
+    autograd and Eq. 4 the ``fuse`` kernel."""
+    if cfg.use_pallas and (layer_role(cfg) in ("dense", "moe", "hybrid")
+                           or cfg.is_encdec):
         raise NotImplementedError(
             f"train step, family={cfg.family!r} with use_pallas=True: the "
             "flash_attention kernel has no backward (nor has the JAX "

@@ -48,18 +48,15 @@ def device_batches(cfg, seq: int, batch: int, steps: int, device,
                    seed: int = 1) -> Iterable[dict]:
     """The launcher's data on ``device``: ``synthetic_lm_batches`` with the
     reference's seed; a vlm batch gets zero ``patches`` [batch,
-    n_patches, d_model] in the config's dtype, as the reference's
-    launcher gives it."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "device_batches: the audio family's frames come with ROADMAP "
-            "queue 1 item 6, \"The rest of the model zoo\"")
+    n_patches, d_model] and an audio batch zero ``frames`` [batch,
+    enc_frames, d_model], in the config's dtype, as the reference's
+    launcher gives them."""
+    extra = M.side_input_shapes(cfg, batch)
     for b in synthetic_lm_batches(cfg.vocab, seq, batch, steps, seed=seed):
         out = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
-        if cfg.family == "vlm":
-            out["patches"] = torch.zeros(
-                (batch, cfg.n_patches, cfg.d_model), dtype=M.torch_dtype(cfg),
-                device=device)
+        for k, shape in extra.items():
+            out[k] = torch.zeros(shape, dtype=M.torch_dtype(cfg),
+                                 device=device)
         yield out
 
 

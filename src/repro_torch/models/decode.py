@@ -1,15 +1,23 @@
 """KV/SSM-cache serving path for the LM families (dense, moe, vlm, ssm,
-hybrid): prefill + single-token decode, the JAX package's
-``models/decode.py`` for those families. A moe layer attends as a dense
-one and runs its mixture of experts on the one new token; a vlm prompt
-carries its image patches into the prefill (the cache then starts after
-``n_patches + S`` positions), and decode embeds tokens alone.
+hybrid, audio): prefill + single-token decode, the JAX package's
+``models/decode.py``. A moe layer attends as a dense one and runs its
+mixture of experts on the one new token; a vlm prompt carries its image
+patches into the prefill (the cache then starts after ``n_patches + S``
+positions), and decode embeds tokens alone. An audio prompt is
+``frames`` [B, T_enc, d_model] and decoder ``tokens`` [B, S]: the
+prefill runs the encoder once and the decoder over the tokens, and
+keeps each decoder layer's cross-attention keys and values over the
+frames; decode embeds a token at its ``dec_pos`` row and cross-attends
+to that cache, which it reads and never writes.
 
 Cache layout (stacked over layers, mirroring the super-network stack):
   attention:  k, v      [L, B, W, K, hd]  post-rope keys and values
                                           (W = the cache window)
   ssm:        ssm_h     [L, B, nh, hd, st] fp32 recurrent state
               ssm_conv  [L, B, k-1, d_inner] the causal conv's window
+  audio:      cross_k/v [L, B, T_enc, K, hd] the decoder's cross-attention
+                                          keys and values, set by the
+                                          prefill (L: decoder layers)
   shared:     pos       [B, W] int32      absolute position per slot,
                                           -1 = empty (the ssm family
                                           keeps it, padded, unwritten)
@@ -28,7 +36,9 @@ Two deliberate departures from the reference, each held by
       JAX package returns a new cache. At Llama-3.2-3B's full width and
       4 × 2080 slots the KV cache is about 0.95 GB, and at Mamba2-2.7B's
       and B = 4 ``ssm_h`` alone is 671 MB: a copy per token would
-      dominate decode.
+      dominate decode. ``cross_k``/``cross_v`` are left as they are, bit
+      for bit (at Whisper-small's 12 decoder layers, 1,500 frames and
+      B = 16 they are 0.88 GB).
   (d) ``cache["idx"]`` is a host ``int``, not a device scalar, so the slot
       ``idx % W`` needs no device sync per token.
 """
@@ -43,10 +53,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import (_causal, _head_logits, _row,
-                                      check_family, embed_inputs,
-                                      embed_tokens, ffn, final_norm,
-                                      layer_role, run_stack, stack_len,
-                                      torch_dtype)
+                                      check_family, decode_tokens, encode,
+                                      embed_inputs, embed_tokens, ffn,
+                                      final_norm, layer_role, run_stack,
+                                      stack_len, torch_dtype)
 
 LONG_CONTEXT_THRESHOLD = 65536
 
@@ -76,11 +86,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     c: Dict[str, Any] = {
         "idx": 0,
         "pos": torch.full((batch, W), -1, dtype=torch.int32, device=device)}
-    if role in ("dense", "moe", "hybrid"):
-        shape = (cfg.n_layers, batch, W, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
+    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    if role in ("dense", "moe", "hybrid") or cfg.is_encdec:
+        shape = (cfg.n_layers, batch, W) + kv
         c["k"] = torch.zeros(shape, dtype=dtype, device=device)
         c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.is_encdec:
+        shape = (cfg.n_layers, batch, cfg.enc_frames) + kv
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     if role in ("ssm", "hybrid"):
         c["ssm_h"] = torch.zeros(
             (cfg.n_layers, batch, cfg.ssm_n_heads, cfg.ssm_head_dim,
@@ -98,14 +112,19 @@ def prefill(cfg: ModelConfig, params, batch, decode_budget: int = 0):
 
     ``decode_budget`` reserves cache room for later ``decode_step`` calls
     (ignored when the rolling window is already smaller than the prompt).
-    A vlm batch holds ``patches`` beside ``tokens``. Returns (logits
-    [B, S, V], cache), S counting the patches.
+    A vlm batch holds ``patches`` beside ``tokens``, an audio batch
+    ``frames``. Returns (logits [B, S, V], cache), S counting the patches.
     """
     _check_servable(cfg)
     h, pos = embed_inputs(cfg, params, batch)
-    h, _, ys = run_stack(cfg, params["layers"], h, positions=pos,
-                         causal=_causal(cfg), window=cfg.sliding_window,
-                         emit=True)
+    if cfg.is_encdec:
+        enc_out, _ = encode(cfg, params, h)
+        h, _, ys = decode_tokens(cfg, params, batch["tokens"], enc_out,
+                                 emit=True)
+    else:
+        h, _, ys = run_stack(cfg, params["layers"], h, positions=pos,
+                             causal=_causal(cfg), window=cfg.sliding_window,
+                             emit=True)
     logits = _head_logits(cfg, params, final_norm(cfg, params, h))
     cache = _build_cache(cfg, ys, h.shape[0], h.shape[1], decode_budget,
                          h.device)
@@ -144,6 +163,8 @@ def _build_cache(cfg: ModelConfig, ys, batch: int, S: int,
     c["pos"] = pos.contiguous()
     if "ssm_h" in ys:
         c["ssm_h"], c["ssm_conv"] = ys["ssm_h"], ys["ssm_conv"]
+    if "cross_k" in ys:
+        c["cross_k"], c["cross_v"] = ys["cross_k"], ys["cross_v"]
     return c
 
 
@@ -152,26 +173,30 @@ def _build_cache(cfg: ModelConfig, ys, batch: int, S: int,
 def decode_step(cfg: ModelConfig, params, cache, token):
     """token [B, 1] int -> (logits [B, 1, V], cache). The cache is updated
     in place and returned (departure (c)); ``cache["idx"]`` is a host int
-    (departure (d))."""
+    (departure (d)). An audio decoder layer attends over its own cache
+    without rope, then cross-attends to ``cross_k``/``cross_v``."""
     _check_servable(cfg)
-    role = layer_role(cfg)
+    role = "dec" if cfg.is_encdec else layer_role(cfg)
     B = token.shape[0]
     idx = int(cache["idx"])
     h = embed_tokens(cfg, params, token)
+    if cfg.is_encdec:
+        h = h + params["dec_pos"][idx]
     if "k" in cache:
         pos_q = torch.full((B, 1), idx, dtype=torch.int32, device=h.device)
         kc_all, vc_all, pos = cache["k"], cache["v"], cache["pos"]
         slot = idx % kc_all.shape[2]
         pos[:, slot] = idx
         mask = (pos >= 0)[:, None, None, :]
-    stack = params["layers"]
+    stack = params["dec_layers" if cfg.is_encdec else "layers"]
     for i in range(stack_len(stack)):
         p = _row(stack, i)
         x = L.apply_norm(cfg, h, p, "attn_norm")
-        if role in ("dense", "moe", "hybrid"):
+        if role in ("dense", "moe", "hybrid", "dec"):
             q, k, v = L.project_qkv(cfg, p["attn"], x, x)
-            q = L.apply_rope(q, pos_q, cfg.rope_theta)
-            k = L.apply_rope(k, pos_q, cfg.rope_theta)
+            if role != "dec":
+                q = L.apply_rope(q, pos_q, cfg.rope_theta)
+                k = L.apply_rope(k, pos_q, cfg.rope_theta)
             kc_all[i, :, slot] = k[:, 0]
             vc_all[i, :, slot] = v[:, 0]
             out = L.attention(q, kc_all[i], vc_all[i], mask=mask)
@@ -183,13 +208,19 @@ def decode_step(cfg: ModelConfig, params, cache, token):
                                    "conv": cache["ssm_conv"][i]})
             cache["ssm_h"][i] = st["h"]
             cache["ssm_conv"][i] = st["conv"]
-        if role in ("dense", "moe"):
+        if role in ("dense", "moe", "dec"):
             h = h + out
         elif role == "ssm":
             h = h + s
         else:
             h = h + p["branch_scale_attn"] * out + \
                 p["branch_scale_ssm"] * s
+        if role == "dec":
+            x = L.apply_norm(cfg, h, p, "cross_norm")
+            q = (x @ p["cross"]["wq"]).reshape(B, 1, cfg.n_heads,
+                                               cfg.resolved_head_dim)
+            out = L.attention(q, cache["cross_k"][i], cache["cross_v"][i])
+            h = h + out.reshape(B, 1, -1) @ p["cross"]["wo"]
         if role != "ssm":
             h = ffn(cfg, role, p, h)[0]
     logits = _head_logits(cfg, params, final_norm(cfg, params, h))

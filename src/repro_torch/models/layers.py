@@ -8,7 +8,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
@@ -186,6 +185,25 @@ def silu(x):
     return x * torch.reciprocal(1.0 + torch.exp(-x))
 
 
+def gelu(x):
+    """``jax.nn.gelu`` (its default tanh form),
+    x·0.5·(1 + tanh(√(2/π)·(x + 0.044715·x³))), each op rounded in x's
+    dtype as XLA rounds it: both constants are rounded to that dtype
+    first, as the reference's ``np.sqrt(2 / np.pi).astype(x.dtype)`` and
+    weak-typed 0.044715 are (a Python float beside a bf16 tensor would
+    enter the product unrounded), and x³ is x·x·x. ``F.gelu(x,
+    approximate="tanh")`` rounds once, which leaves 43 % of bf16 outputs
+    an ulp or more off the reference's; this form matches it bit for bit
+    in bf16. In fp32 neither form matches XLA's ``tanh`` in the last ulp
+    (both within 1e-6), so fp32 keeps the one fused ``F.gelu`` pass in
+    place of the chain's eight."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def mlp_params(cfg: ModelConfig, gen: torch.Generator, dtype):
     dm, dff = cfg.d_model, cfg.d_ff
     down_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
@@ -204,13 +222,11 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator, dtype):
 
 
 def mlp_apply(cfg: ModelConfig, p, x):
-    # jax.nn.gelu defaults to the tanh approximation
     if cfg.mlp == "swiglu":
         return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     if cfg.mlp == "geglu":
-        return (F.gelu(x @ p["w_gate"], approximate="tanh")
-                * (x @ p["w_up"])) @ p["w_down"]
-    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+        return (gelu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    h = gelu(x @ p["w_up"] + p["b_up"])
     return h @ p["w_down"] + p["b_down"]
 
 

@@ -7,8 +7,16 @@ layer adds to ``aux``), ``vlm`` (the dense layers over a prefix of
 projected image patches, ``batch["patches"] @ vision_proj``, before the
 token embeddings; the losses skip the patch positions), ``ssm`` (one
 Mamba-2 mixer per layer, attention-free) and ``hybrid`` (attention and a
-Mamba-2 mixer side by side on one normed input, then an MLP). The
-``audio`` family (an encoder-decoder) is not ported yet.
+Mamba-2 mixer side by side on one normed input, then an MLP) and
+``audio``, the Whisper encoder-decoder: audio frames
+(``batch["frames"] @ frame_proj`` plus a sinusoid) through the encoder
+stack ``enc_layers`` (non-causal attention, no rope), ``enc_norm``, then
+the decoder stack ``dec_layers`` over ``embed[tokens]·√d_model +
+dec_pos`` (causal self-attention without rope, cross-attention on the
+encoder's output, a gelu MLP), ``dec_norm`` and the head tied to
+``embed``. The encoder is the split stack: a client holds
+``frame_proj`` and the first ``d`` encoder layers, and its local head
+predicts every label position from the frames' mean (a unigram head).
 
 The stacked tree (leading ``L`` axis) is the paper's weight-sharing
 super-network: a client subnetwork of depth ``d`` is the row slice
@@ -32,7 +40,9 @@ sharding and multi-device").
 
 Public surface (the JAX module's names):
   init_params(cfg, gen, device)
+  side_input_shapes(cfg, batch)           the inputs beside ``tokens``
   layer_role / embed_tokens / embed_inputs / run_stack
+  encode / decode_tokens / sinusoid       the audio encoder and decoder
   prefix_apply(cfg, params, batch, d)     -> (z, aux)   smashed data
   client_apply(cfg, client_params, batch) -> (z, aux)
   local_logits / local_loss               the client's fault-tolerant head
@@ -59,14 +69,30 @@ from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
+# rows of the audio decoder's learned position table (the reference's)
+DEC_POS_ROWS = 32768
+
+
+FAMILIES = ("vit", "dense", "moe", "vlm", "ssm", "hybrid", "audio")
+
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("vit", "dense", "moe", "vlm", "ssm", "hybrid"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family={cfg.family!r}: the port runs the vit, dense, moe, "
-            "vlm, ssm and hybrid families only so far; the audio "
-            "encoder-decoder is ROADMAP queue 1 item 6, \"The rest of the "
-            "model zoo\"")
+            f"family={cfg.family!r}: the port runs the families of the "
+            f"JAX package's model zoo, {', '.join(FAMILIES)}")
+
+
+def side_input_shapes(cfg: ModelConfig, batch: int) -> Dict[str, Tuple]:
+    """The inputs an LM family takes beside ``tokens`` (the reference's
+    ``make_dummy_batch`` draws them): a vlm prompt's ``patches`` [batch,
+    n_patches, d_model], an audio request's ``frames`` [batch,
+    enc_frames, d_model]; none for the others."""
+    if cfg.family == "vlm":
+        return {"patches": (batch, cfg.n_patches, cfg.d_model)}
+    if cfg.is_encdec:
+        return {"frames": (batch, cfg.enc_frames, cfg.d_model)}
+    return {}
 
 
 def layer_role(cfg: ModelConfig) -> str:
@@ -81,19 +107,25 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 # ----------------------------------------------------------------- stack init
 
-def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
-    """One layer's parameter tree for the config's role: "enc" (vit) and
-    "dense" (also vlm) have the same leaves; "moe" has ``moe`` in place
-    of ``mlp``; "ssm" a norm and the mixer; "hybrid" both, plus a
-    per-channel scale for each branch."""
-    role = layer_role(cfg)
+def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype,
+                  role: str) -> Params:
+    """One layer's parameter tree for ``role``: "enc" (vit, the audio
+    encoder) and "dense" (also vlm) have the same leaves; "dec" (the
+    audio decoder) adds ``cross_norm_*`` and the cross-attention
+    ``cross`` after ``attn``; "moe" has ``moe`` in place of ``mlp``;
+    "ssm" a norm and the mixer; "hybrid" both, plus a per-channel scale
+    for each branch."""
     dm = cfg.d_model
     p: Params = {}
-    if role in ("enc", "dense", "moe", "hybrid", "ssm"):
+    if role in ("enc", "dec", "dense", "moe", "hybrid", "ssm"):
         p.update({f"attn_norm_{k}": v
                   for k, v in L.norm_params(cfg, dm, dtype).items()})
-    if role in ("enc", "dense", "moe", "hybrid"):
+    if role in ("enc", "dec", "dense", "moe", "hybrid"):
         p["attn"] = L.attn_params(cfg, gen, dtype)
+        if role == "dec":
+            p.update({f"cross_norm_{k}": v
+                      for k, v in L.norm_params(cfg, dm, dtype).items()})
+            p["cross"] = L.attn_params(cfg, gen, dtype)
         p.update({f"mlp_norm_{k}": v
                   for k, v in L.norm_params(cfg, dm, dtype).items()})
         if role == "moe":
@@ -108,15 +140,16 @@ def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     return p
 
 
-def _stack(cfg: ModelConfig, gen: torch.Generator, n: int, dtype) -> Params:
-    """``n`` layers drawn in turn, each copied into its row of a stacked
-    tree allocated once: the stack never exists twice (Mixtral-8x7B's 16
-    layers are 47 GB in bf16)."""
-    layer = _layer_params(cfg, gen, dtype)
+def _stack(cfg: ModelConfig, gen: torch.Generator, n: int, dtype,
+           role: str) -> Params:
+    """``n`` layers of ``role`` drawn in turn, each copied into its row of
+    a stacked tree allocated once: the stack never exists twice
+    (Mixtral-8x7B's 16 layers are 47 GB in bf16)."""
+    layer = _layer_params(cfg, gen, dtype, role)
     out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), layer)
     for i in range(n):
         if i:
-            layer = _layer_params(cfg, gen, dtype)
+            layer = _layer_params(cfg, gen, dtype, role)
         tree_map(lambda row, x: row[i].copy_(x), out, layer)
         del layer
     return out
@@ -149,7 +182,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
     The LM families' global head is always untied (``unembed``), as in
     the reference: SuperSFL puts the embedding on the client and the head
-    on the server."""
+    on the server. The audio decoder's head stays tied to ``embed``
+    (both live on the server, the split stack being the encoder);
+    ``dec_pos`` has the reference's 32,768 rows."""
     check_family(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
@@ -161,15 +196,24 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         p["patch_embed"] = L.dense_init(gen, pdim, dm, dtype)
         p["patch_bias"] = L.zeros((dm,), dtype)
         p["pos_embed"] = L.normal(gen, (n_patches, dm), dtype)
-        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
+        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype, "enc")
         p["head"] = L.dense_init(gen, dm, cfg.n_classes, dtype)
         p["head_bias"] = L.zeros((cfg.n_classes,), dtype)
         p.update(_local_head(cfg, gen))
+    elif cfg.is_encdec:
+        p["frame_proj"] = L.dense_init(gen, dm, dm, dtype)
+        p["embed"] = L.normal(gen, (cfg.padded_vocab, dm), dtype)
+        p["dec_pos"] = L.normal(gen, (DEC_POS_ROWS, dm), dtype)
+        p["enc_layers"] = _stack(cfg, gen, cfg.n_enc_layers, dtype, "enc")
+        p["dec_layers"] = _stack(cfg, gen, cfg.n_layers, dtype, "dec")
+        p["enc_norm"] = L.norm_params(cfg, dm, dtype)
+        p["dec_norm"] = L.norm_params(cfg, dm, dtype)
+        p["local_head"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
     else:
         p["embed"] = L.normal(gen, (cfg.padded_vocab, dm), dtype)
         if cfg.family == "vlm":
             p["vision_proj"] = L.dense_init(gen, dm, dm, dtype)
-        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype)
+        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype, layer_role(cfg))
         p["final_norm"] = L.norm_params(cfg, dm, dtype)
         p["unembed"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
         p["local_head"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
@@ -217,6 +261,17 @@ def _ssm_block(cfg: ModelConfig, p, h, emit: bool):
     return SSM.ssm_apply(cfg, p["ssm"], x), {}
 
 
+def _cross_block(cfg: ModelConfig, p, h, enc_out):
+    """The audio decoder's cross-attention from the normed ``h`` to the
+    encoder's output, unmasked: (out projected, (k, v) over the frames
+    for the cache)."""
+    x = L.apply_norm(cfg, h, p, "cross_norm")
+    q, k, v = L.project_qkv(cfg, p["cross"], x, enc_out)
+    out = L.attention(q, k, v)
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ p["cross"]["wo"], (k, v)
+
+
 def ffn(cfg: ModelConfig, role: str, p, h):
     """The layer's feed-forward half on the residual ``h``: (h + the MLP,
     or the moe layer's mixture of experts, of the normed input; the moe
@@ -229,10 +284,11 @@ def ffn(cfg: ModelConfig, role: str, p, h):
 
 
 def _layer(cfg: ModelConfig, role: str, p, h, *, positions, causal, window,
-           use_rope: bool = False, emit: bool = False):
+           use_rope: bool = False, emit: bool = False, enc_out=None):
     """One layer of ``role``; returns (h, aux, the layer's cache
     entries): aux is the moe layer's router loss (fp32), None for the
-    other roles."""
+    other roles. A "dec" layer cross-attends to ``enc_out`` after its
+    self-attention and adds "cross_k" and "cross_v" to its entries."""
     if role == "ssm":
         s, ys = _ssm_block(cfg, p, h, emit)
         return h + s, None, ys
@@ -245,6 +301,10 @@ def _layer(cfg: ModelConfig, role: str, p, h, *, positions, causal, window,
         h = h + p["branch_scale_attn"] * out + p["branch_scale_ssm"] * s
     else:
         h = h + out
+    if role == "dec":
+        out, (ck, cv) = _cross_block(cfg, p, h, enc_out)
+        h = h + out
+        ys.update(cross_k=ck, cross_v=cv)
     return (*ffn(cfg, role, p, h), ys)
 
 
@@ -270,39 +330,46 @@ def stack_len(stack: Params) -> int:
 
 
 def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
-              causal: bool = False, window: int = 0, emit: bool = False):
+              causal: bool = False, window: int = 0, emit: bool = False,
+              role: str = None, enc_out=None):
     """Apply every row of ``stack`` to ``h`` in order (the caller slices
-    the depth window). Returns (h, aux), and with ``emit`` (h, aux, ys):
-    ys stacks each layer's cache entries along a leading L axis — the
-    post-rope "k" and "v" [L, B, S, K, hd] of an attention layer, the
-    final SSM state "ssm_h" [L, B, nh, hd, st] (fp32) and the conv tail
-    "ssm_conv" [L, B, k-1, d_inner] of a mixer. aux is the sum of the
-    moe layers' router losses in fp32, as the reference's scan carries
-    it, and 0.0 for the other families.
+    the depth window). ``role`` defaults to the config's ``layer_role``;
+    the audio decoder passes "dec" and the encoder's output ``enc_out``.
+    Returns (h, aux), and with ``emit`` (h, aux, ys): ys stacks each
+    layer's cache entries along a leading L axis — the post-rope "k" and
+    "v" [L, B, S, K, hd] of an attention layer, a decoder layer's
+    "cross_k" and "cross_v" [L, B, T_enc, K, hd], the final SSM state
+    "ssm_h" [L, B, nh, hd, st] (fp32) and the conv tail "ssm_conv"
+    [L, B, k-1, d_inner] of a mixer. aux is the sum of the moe layers'
+    router losses in fp32, as the reference's scan carries it, and 0.0
+    for the other families.
 
     With ``cfg.remat``, while grad mode is on and without ``emit``, each
     layer runs under ``torch.utils.checkpoint`` (non-reentrant): only its
-    input is kept, and every backward pass through it recomputes its
-    forward, so TPGF's two backward passes through one prefix graph each
-    recompute it."""
-    role = layer_role(cfg)
+    inputs are kept (``enc_out`` among them, so a decoder layer's
+    backward reaches the encoder), and every backward pass through it
+    recomputes its forward, so TPGF's two backward passes through one
+    prefix graph each recompute it."""
+    role = role or layer_role(cfg)
     use_rope = role in ("dense", "moe", "hybrid")
     remat = cfg.remat and not emit and torch.is_grad_enabled()
 
-    def layer(p, x):
+    def layer(p, x, e=None):
         return _layer(cfg, role, p, x, positions=positions, causal=causal,
-                      window=window, use_rope=use_rope)[:2]
+                      window=window, use_rope=use_rope, enc_out=e)[:2]
 
+    # a decoder layer's checkpoint takes enc_out as an input of its own
+    extra = () if enc_out is None else (enc_out,)
     per = []
     aux = 0.0
     for row in _rows(stack, stack_len(stack)):
         if remat:
-            h, a = checkpoint(layer, row, h, use_reentrant=False,
+            h, a = checkpoint(layer, row, h, *extra, use_reentrant=False,
                               preserve_rng_state=False)
         else:
             h, a, ys = _layer(cfg, role, row, h, positions=positions,
                               causal=causal, window=window,
-                              use_rope=use_rope, emit=emit)
+                              use_rope=use_rope, emit=emit, enc_out=enc_out)
             if emit:
                 per.append(ys)
         if a is not None:
@@ -325,13 +392,30 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens):
     return emb[tokens.long()] * scale
 
 
+def sinusoid(S: int, dm: int, dtype, device=None):
+    """The audio encoder's fixed position signal [S, dm]: sin | cos of
+    pos / 10000^(2i/dm), computed in fp32 and cast to ``dtype``."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, dm, 2, dtype=torch.float32, device=device)[None]
+    ang = pos / torch.pow(10000.0, dim / dm)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def embed_inputs(cfg: ModelConfig, params: Params, batch) -> Tuple[Any, Any]:
     """Returns (h [B,S,dm], positions [B,S]). vit: the reference's
     patchify order (rows of patches, then columns, then pixels and
-    channels); the LM families: ``embed_tokens``, and for vlm a batch
-    with ``patches`` [B, n_patches, dm] puts ``patches @ vision_proj``
-    before the tokens."""
+    channels); audio: ``frames`` [B, T, dm] (cast to the weights' dtype)
+    ``@ frame_proj`` plus ``sinusoid``, the encoder's input; the other
+    LM families: ``embed_tokens``, and for vlm a batch with ``patches``
+    [B, n_patches, dm] puts ``patches @ vision_proj`` before the
+    tokens."""
     check_family(cfg)
+    if cfg.is_encdec:
+        fp = params["frame_proj"]
+        h = batch["frames"].to(fp.dtype) @ fp
+        h = h + sinusoid(h.shape[1], cfg.d_model, h.dtype, h.device)[None]
+        pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        return h, pos
     if cfg.family != "vit":
         h = embed_tokens(cfg, params, batch["tokens"])
         if cfg.family == "vlm" and "patches" in batch:
@@ -355,13 +439,44 @@ def _head_logits(cfg: ModelConfig, params: Params, h):
     if cfg.family == "vit":
         pooled = h.mean(dim=1)
         return pooled @ params["head"] + params["head_bias"]
+    if cfg.is_encdec:
+        return h @ params["embed"].T      # the decoder's head stays tied
     return h @ params["unembed"]
 
 
+def _norm(cfg: ModelConfig, p, h):
+    """A stand-alone norm stored as {"scale"(, "bias")}."""
+    return L.apply_norm(cfg, h, {f"attn_norm_{k}": v for k, v in p.items()},
+                        "attn_norm")
+
+
 def final_norm(cfg: ModelConfig, params: Params, h):
-    """The LM families' last norm before ``unembed``."""
-    return L.apply_norm(cfg, h, {f"attn_norm_{k}": v for k, v in
-                                 params["final_norm"].items()}, "attn_norm")
+    """The LM families' last norm before the head (the audio decoder's
+    ``dec_norm``)."""
+    return _norm(cfg, params["dec_norm" if cfg.is_encdec else
+                             "final_norm"], h)
+
+
+def encode(cfg: ModelConfig, params: Params, h):
+    """The audio encoder's rows in ``params["enc_layers"]`` over ``h``,
+    then ``enc_norm``: (enc_out, aux)."""
+    pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+    h, aux = run_stack(cfg, params["enc_layers"], h, positions=pos,
+                       role="enc")
+    return _norm(cfg, params["enc_norm"], h), aux
+
+
+def decode_tokens(cfg: ModelConfig, params: Params, tokens, enc_out,
+                  emit: bool = False):
+    """The audio decoder over ``tokens`` [B, S]: ``embed_tokens`` plus
+    ``dec_pos[:S]``, then every row of ``dec_layers`` (causal
+    self-attention, cross-attention on ``enc_out``), before
+    ``dec_norm``; run_stack's (h, aux) or, with ``emit``, (h, aux, ys)."""
+    S = tokens.shape[1]
+    h = embed_tokens(cfg, params, tokens) + params["dec_pos"][:S][None]
+    pos = torch.arange(S, device=h.device).expand(tokens.shape)
+    return run_stack(cfg, params["dec_layers"], h, positions=pos,
+                     causal=True, emit=emit, role="dec", enc_out=enc_out)
 
 
 def _causal(cfg: ModelConfig) -> bool:
@@ -378,25 +493,30 @@ def client_apply(cfg: ModelConfig, client_params: Params, batch):
     """Forward an already-split client view (stack rows ``[:d]``) ->
     smashed z."""
     h, pos = embed_inputs(cfg, client_params, batch)
-    return run_stack(cfg, client_params["layers"], h, positions=pos,
-                     causal=_causal(cfg), window=cfg.sliding_window)
+    return run_stack(cfg, client_params[cfg.split_stack_name], h,
+                     positions=pos, causal=_causal(cfg),
+                     window=cfg.sliding_window)
 
 
 def prefix_apply(cfg: ModelConfig, params: Params, batch, d: int):
     """Client-side forward through the first ``d`` layers of the full
     tree -> smashed data."""
     view = dict(params)
-    view["layers"] = _depth_slice(params["layers"], 0, d)
+    name = cfg.split_stack_name
+    view[name] = _depth_slice(params[name], 0, d)
     return client_apply(cfg, view, batch)
 
 
 def local_logits(cfg: ModelConfig, params: Params, z):
     """Fault-tolerant lightweight client head on smashed data: vit pools
-    the tokens, the LM families predict every position."""
+    the tokens, audio the frames (one unigram distribution a sequence),
+    the other LM families predict every position."""
     check_family(cfg)
     if cfg.family == "vit":
         pooled = z.mean(dim=1)
         return pooled @ params["local_head"] + params["local_head_bias"]
+    if cfg.is_encdec:
+        return z.mean(dim=1) @ params["local_head"]
     return z @ params["local_head"]
 
 
@@ -418,14 +538,26 @@ def _xent(cfg: ModelConfig, logits, batch):
 
 
 def local_loss(cfg: ModelConfig, params: Params, z, batch):
-    return _xent(cfg, local_logits(cfg, params, z), batch)
+    logits = local_logits(cfg, params, z)
+    if cfg.is_encdec:
+        # the unigram proxy: the pooled logits predict every label position
+        logits = logits[:, None].expand(batch["labels"].shape
+                                        + logits.shape[-1:])
+    return _xent(cfg, logits, batch)
 
 
 def server_apply(cfg: ModelConfig, server_params: Params, z, batch):
     """The server branch on an already-split view whose stack holds only
     the suffix rows ``[d:]``; the LM families end with ``final_norm``
-    and ``unembed``."""
+    and ``unembed``. Audio: the encoder's suffix rows, ``enc_norm``, then
+    the whole decoder over ``batch["tokens"]`` (``decode_tokens``),
+    ``dec_norm`` and the tied head."""
     check_family(cfg)
+    if cfg.is_encdec:
+        enc_out, aux = encode(cfg, server_params, z)
+        h, aux2 = decode_tokens(cfg, server_params, batch["tokens"], enc_out)
+        return (_head_logits(cfg, server_params,
+                             final_norm(cfg, server_params, h)), aux + aux2)
     pos = torch.arange(z.shape[1], device=z.device).expand(z.shape[:2])
     h, aux = run_stack(cfg, server_params["layers"], z, positions=pos,
                        causal=_causal(cfg), window=cfg.sliding_window)
@@ -437,7 +569,8 @@ def server_apply(cfg: ModelConfig, server_params: Params, z, batch):
 def suffix_apply(cfg: ModelConfig, params: Params, z, batch, d: int):
     """Server-side forward from smashed data to logits: rows ``[d:]``."""
     sp = dict(params)
-    sp["layers"] = _depth_slice(params["layers"], d)
+    name = cfg.split_stack_name
+    sp[name] = _depth_slice(params[name], d)
     return server_apply(cfg, sp, z, batch)
 
 

@@ -1,6 +1,6 @@
-"""Shared harness of the moe and vlm parity tests: the reference's weights
-nudged and carried across, the same batches on both sides, the live JAX
-train step beside the port's, and the comparisons.
+"""Shared harness of the moe, vlm and audio parity tests: the reference's
+weights nudged and carried across, the same batches on both sides, the
+live JAX train step beside the port's, and the comparisons.
 
 Each test module imports what it needs; the tolerances are the LM
 slice's (``tests/test_torch_lm_train.py``): metrics 1e-5, params 1e-4,
@@ -21,6 +21,7 @@ from repro_torch import optim as TO
 from repro_torch.configs import base as TB
 from repro_torch.data.synthetic import synthetic_lm_batches
 from repro_torch.launch import steps as TSTEPS
+from repro_torch.models import model as TM
 from repro_torch.tree import tree_flatten_with_path
 
 METRIC_TOL = 1e-5
@@ -65,13 +66,14 @@ def assert_params_close(jtree, ttree, tol=PARAM_TOL):
 
 def lm_batches(cfg, batch, seq, n, seed=1):
     """``n`` numpy batches of ``synthetic_lm_batches``; a vlm batch gets
-    seeded N(0, 1) ``patches`` [batch, n_patches, d_model] (fp32)."""
+    seeded N(0, 1) ``patches`` [batch, n_patches, d_model] and an audio
+    batch seeded N(0, 1) ``frames`` [batch, enc_frames, d_model] (fp32)."""
     out = list(synthetic_lm_batches(cfg.vocab, seq, batch, n, seed=seed))
-    if cfg.family == "vlm":
-        rng = np.random.default_rng(seed + 50)
-        for b in out:
-            b["patches"] = rng.standard_normal(
-                (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    extra = TM.side_input_shapes(cfg, batch)
+    rng = np.random.default_rng(seed + 50)
+    for b in out:
+        for k, shape in extra.items():
+            b[k] = rng.standard_normal(shape).astype(np.float32)
     return out
 
 

@@ -254,8 +254,8 @@ def test_training_surfaces_train_and_the_engine_points_at_the_step():
     """The LM training surfaces run (the smashed data, both heads' losses
     and the TPGF gradients; ``tests/test_torch_lm_train.py`` holds them to
     the reference); the federated ``Engine`` still refuses an LM config,
-    as the reference's cannot run one, and names the train step; the
-    audio family is not ported."""
+    as the reference's cannot run one, and names the train step; a family
+    outside the JAX package's zoo is refused."""
     cfg = TB.get_reduced("llama3_2_3b")
     with pytest.raises(NotImplementedError, match="make_train_step"):
         Engine(cfg, 3, "ssfl", device="cpu")
@@ -273,6 +273,6 @@ def test_training_surfaces_train_and_the_engine_points_at_the_step():
     out = tpgf_grads(cfg, params, batch, 1)
     assert sorted(out.grads) == sorted(params)
     assert out.grads["embed"].abs().sum() > 0
-    with pytest.raises(NotImplementedError, match="rest of the model zoo"):
-        TM.init_params(TB.get_reduced("llama3_2_3b").replace(family="audio"),
+    with pytest.raises(NotImplementedError, match="model zoo"):
+        TM.init_params(TB.get_reduced("llama3_2_3b").replace(family="asr"),
                        torch.Generator(), device="cpu")

@@ -26,7 +26,11 @@ overflow. One round of the scenario strategies ``unstable`` and ``hasfl``
 same round with the kernels off within 1e-4. ``flash_attention`` at
 Mixtral-8x7B's windowed prefill shape (S 8,192, window 4,096), and a
 reduced Mixtral prefill past its window: one launch a layer, kernels on
-vs off within 1e-4, the rolled cache.
+vs off within 1e-4, the rolled cache. ``flash_attention`` at
+Whisper-small's decoder shape (16 × 224, 12 heads of 64), and a
+full-size fp32 Whisper prefill: one launch in each decoder layer,
+kernels on vs off within 1e-3 of the largest logit, the cross-attention
+cache bit for bit.
 """
 import pytest
 
@@ -582,3 +586,57 @@ def test_moe_prefill_past_its_window_on_the_card(cuda):
     assert pos.shape[1] == W
     assert bool((pos % W == torch.arange(W, device=cuda)).all())
     assert int(pos.min()) == 64 - W
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_at_whispers_decoder_shape(cuda, dtype, tol):
+    """Whisper-small's decoder prefill in ``chip_smoke.py``: 16 requests
+    of 224 tokens, 12 query and 12 KV heads of 64 (multi-head, not
+    grouped), causal."""
+    from repro_torch.kernels.flash_attention import ops as O, ref as R
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((16, 224, 12, 64), generator=g,
+                           device=cuda).to(dtype) for _ in range(3))
+    with torch.no_grad():
+        got = O.flash_attention(q, k, v, causal=True)
+        want = R.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_whisper_prefill_on_the_card_launches_flash_in_each_decoder_layer(
+        cuda):
+    """Whisper-small whole in fp32, 2 requests of 1,500 frames and 64
+    decoder tokens: with the kernels on ``flash_attention`` launches once
+    in each of the 12 decoder layers (never in the encoder); the logits
+    and the self-attention cache agree with the kernels off (which launch
+    nothing) within 1e-3 of the largest, and the cross-attention cache,
+    which no kernel touches, is the same bit for bit."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import init_params
+    cfg = get_config("whisper_small").replace(dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                                     device=cuda),
+             "frames": torch.randn((2, cfg.enc_frames, cfg.d_model),
+                                   generator=g, device=cuda)}
+    out = {}
+    for on in (True, False):
+        before = flash_attention.launches
+        out[on] = make_prefill_step(cfg.replace(use_pallas=on),
+                                    decode_budget=4)(params, batch)
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before == (cfg.n_layers if on
+                                                     else 0)
+    (lg_on, c_on), (lg_off, c_off) = out[True], out[False]
+    scale = float(lg_off.abs().max())
+    assert float((lg_on - lg_off).abs().max()) <= 1e-3 * scale
+    assert float((c_on["k"] - c_off["k"]).abs().max()) <= 1e-3 * float(
+        c_off["k"].abs().max())
+    assert c_on["cross_k"].shape == (12, 2, 1500, 12, 64)
+    for key in ("cross_k", "cross_v"):
+        assert torch.equal(c_on[key], c_off[key]), key

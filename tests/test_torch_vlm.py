@@ -243,9 +243,11 @@ def test_launcher_batches_carry_zero_patches():
     b = next(TTRAIN.device_batches(full.replace(n_patches=2), 4, 1, 1,
                                    "cpu"))
     assert b["patches"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 6"):
-        next(TTRAIN.device_batches(full.replace(family="audio"), 4, 1, 1,
-                                   "cpu"))
+    # an audio batch carries zero frames in place of the patches
+    b = next(TTRAIN.device_batches(TB.get_config("whisper_small").replace(
+        enc_frames=3), 4, 1, 1, "cpu"))
+    assert sorted(b) == ["frames", "labels", "tokens"]
+    assert b["frames"].shape == (1, 3, 768) and not b["frames"].any()
     hist = TTRAIN.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                         "--steps", "2", "--batch", "4", "--seq", "16",
                         "--log-every", "1"])
@@ -268,6 +270,16 @@ def test_serve_example_adds_the_patches(capsys):
 
 
 def test_the_audio_family_is_still_refused():
-    cfg = TB.get_reduced("internvl2_2b").replace(family="audio")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TM.init_params(cfg, None, device="meta")
+    """No longer refused: the audio family builds on ``meta`` with the
+    reference's shapes (two stacks, ``dec_pos``, no ``unembed``, no
+    ``vision_proj``); ``tests/test_torch_audio.py`` holds it to the
+    reference."""
+    jcfg, tcfg = JB.get_reduced("whisper_small"), TB.get_reduced(
+        "whisper_small")
+    want = jax.eval_shape(lambda: JM.init_params(jcfg,
+                                                 jax.random.PRNGKey(0)))
+    got = TM.init_params(tcfg, None, device="meta")
+    assert {p: tuple(x.shape) for p, x in tree_flatten_with_path(got)} == {
+        tuple(getattr(k, "key", k) for k in p): tuple(x.shape)
+        for p, x in jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert "vision_proj" not in got and "unembed" not in got
