@@ -18,9 +18,10 @@ Phases, one JSON line each (plus the card's name and power limit as
      every (head_dim, state) pair, no-D and overflow cases), with times
      from CUDA events: kernel, plain version, one PyTorch library call
      where one computes the same function (none does for ``ssd_scan``),
-     and the bound (bytes over 3.35 TB/s vs operations over the peak of
-     their type: 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s
-     bf16); ``flash_attention`` and ``ssd_scan`` are timed at both of
+     and the bound from ``repro_torch.roofline`` at ``kernel_shapes()``
+     (bytes over 3.35 TB/s vs operations over the peak of their type: 67
+     TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16);
+     ``flash_attention`` and ``ssd_scan`` are timed at both of
      their paths' shapes and carry their ``ptxas`` registers and spills
      (``flash_attention`` also checked and timed at Mixtral-8x7B's
      windowed prefill shape, S 8,192 with window 4,096, its plain version
@@ -38,6 +39,9 @@ Phases, one JSON line each (plus the card's name and power limit as
      local ensemble; ``fuse`` and ``aggregate`` must launch. The same run
      with the kernels off must agree (round losses and final parameters
      within 1e-4). A profiled extra round reports device time by kernel;
+     the path's line carries ``counted_flops`` (``count_flops`` of one
+     round, on a copy of the engine) and ``mfu``, its share of the fp32
+     peak over the same round's wall, beside the card's name and limit;
   5. width path — the same fleet on the width ladder (0.25, 0.5, 0.75,
      1.0) with ``cross_tier="fused"``: two mixed-width cohorts, so
      ``fuse``, ``aggregate`` and ``tier_sum`` must launch; kernels off
@@ -46,6 +50,16 @@ Phases, one JSON line each (plus the card's name and power limit as
      Eq. 4) over the depth-10 client's gradient shapes: ``sumsq`` and
      ``fuse`` must launch, and the result must match
      ``clip_by_global_l2`` + ``fuse_gradients`` (rtol 1e-4, atol 1e-6);
+  6a. sanitize path — the main path's configuration with
+     ``Engine(sanitize=True)``: three rounds sanitized and three not, on
+     two engines of one seed, bit for bit (every loss, parameter and
+     local head), ``fuse`` and ``aggregate`` launching in each sanitized
+     round; both engines' device busy time (one profiled round each) and
+     median wall of rounds 2-3, the sanitizer's price; NaN written into
+     one client's rows of ``device_data.images`` must raise
+     ``SlotSanitizerError`` with the client's cohort position among its
+     slots, and a sample index past the flat dataset must raise "out of
+     bounds" before any launch, after which a healthy round runs;
   7. baseline path — the main path's fleet and settings trained by the
      SplitFed baselines ``sfl`` and ``dfl``: with the kernels on,
      ``aggregate`` must launch and no other kernel (``fuse`` least of
@@ -89,8 +103,10 @@ Phases, one JSON line each (plus the card's name and power limit as
      tokens), and decode from a 2,016-token prefill must reproduce the
      full prefill's logits at positions 2016-2047 (both within
      ``SERVE_LOGIT_TOL`` of the largest logit). Prints prefill and decode
-     times and rates, peak memory, the weights' init time, one profiled
-     prefill and one profiled decode step;
+     times and rates, ``model_flops`` and ``mfu`` of a prefill and of a
+     decode step (every serve path's line carries them, as every train
+     path's line carries a step's), peak memory, the weights' init time,
+     one profiled prefill and one profiled decode step;
  12. ssm serve path — the same contract for Mamba2-2.7B at full width and
      depth in bf16 (64 layers, d_model 2560, 80 SSM heads of 64, state
      128), the Llama weights freed first: ``ssd_scan`` must launch 64
@@ -189,10 +205,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 ROUNDS = 2
+# the sanitizer path's rounds per engine: the price is the median wall of
+# rounds 2-3 (round 1 warms the allocator and cuBLAS)
+SANITIZE_ROUNDS = 3
+# what the run learned of its card (phase_environment): its name and power
+# limit, as nvidia-smi prints them, stand beside every mfu
+RUN = {}
 LADDER = (0.25, 0.5, 0.75, 1.0)     # the width path's supernet tiers
 PORT_KERNELS = ("fuse_kernel", "aggregate_kernel", "tier_sum_kernel",
                 "sumsq_partial_kernel", "sumsq_final_kernel",
@@ -223,9 +242,6 @@ AUDIO_SERVE_BATCH, AUDIO_SERVE_PROMPT, AUDIO_TRAIN_SEQ = 16, 224, 448
 # ssd_scan against its plain version: y and h within this much of their
 # largest magnitude, the reference kernel's own bar (test_kernels.py)
 SSD_TOL = 1e-4
-# the chunk at which _ssd_bound counts the chunked form's own terms: fixed,
-# so the yardstick does not move with the kernel's own chunk
-SSD_BOUND_CHUNK = 32
 # kernels on vs off, and decode vs the teacher-forced prefill, as
 # max |Δlogit| / max |logit|: both sides run bf16 through 28 layers, and
 # the flash kernel rounds its output to bf16 from another fp32 order than
@@ -285,12 +301,12 @@ def end(code: int) -> None:
     os._exit(code)
 
 
-def bound(nbytes: float, flops: float, peak_flops_per_s: float):
-    """The least time (ms) the card could take: bytes over the memory
-    rate vs operations over ``peak_flops_per_s``, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(work, dtype: str = "float32"):
+    """``repro_torch.roofline``'s bound of ``work`` (its bytes and
+    operations) at the peak of ``dtype``'s operations: (ms, "bytes" or
+    "operations")."""
+    from repro_torch.roofline import analysis as RF
+    return RF.bound(*work, RF.HW.peak(dtype))
 
 
 def time_ms(fn, *, warmup: int = 3, reps: int = 20,
@@ -329,6 +345,7 @@ def phase_environment():
         die(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    RUN["card"] = card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "environment", "card": card,
@@ -400,6 +417,7 @@ def phase_fuse(client_shape, bf16_shape):
     path's largest bf16 client leaf (a line of its own)."""
     import torch
     from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    from repro_torch.roofline import analysis as RF
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
     w = torch.full((), 0.37, dtype=torch.float32, device=dev)
@@ -429,7 +447,7 @@ def phase_fuse(client_shape, bf16_shape):
     ms = time_ms(lambda: O.fuse_leaf(a, b, w, one))
     plain_ms = time_ms(lambda: R.fuse(a, b, w, one))
     library_ms = time_ms(lambda: torch.lerp(b, a, w))   # b + w·(a − b)
-    bound_ms, bound_by = bound(12.0 * n, 4.0 * n, FP32_FLOPS_PER_S)
+    bound_ms, bound_by = bound(RF.fuse_work(n))
     row = {"name": "fuse", "route": "cuda",
            "source": "src/repro_torch/csrc/tpgf_fusion.cu",
            "replaces": "src/repro/kernels/tpgf_fusion/kernel.py:33",
@@ -459,8 +477,7 @@ def phase_fuse(client_shape, bf16_shape):
             "plain_ms": time_ms(lambda: R.fuse(a, b, w, one)),
             "library_ms": time_ms(lambda: torch.lerp(b, a, w.bfloat16())),
             "library_call": "torch.lerp(b, a, w) in bf16"}
-    bf16["bound_ms"], bf16["bound_by"] = bound(6.0 * n, 4.0 * n,
-                                               FP32_FLOPS_PER_S)
+    bf16["bound_ms"], bf16["bound_by"] = bound(RF.fuse_work(n, 2))
     emit({"phase": "kernel_bf16", **bf16})
     del a, b
     torch.cuda.empty_cache()
@@ -470,6 +487,7 @@ def phase_fuse(client_shape, bf16_shape):
 def phase_aggregate(n_clients, n_layers, feat):
     import torch
     from repro_torch.kernels.layer_aggregate import ops as O, ref as R
+    from repro_torch.roofline import analysis as RF
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
     lam = 0.01
@@ -508,9 +526,7 @@ def phase_aggregate(n_clients, n_layers, feat):
     ms = time_ms(lambda: O.aggregate_leaf(c, ww, s, lam))
     plain_ms = time_ms(lambda: R.aggregate(c, ww, s, lam))
     library_ms = time_ms(lambda: torch.einsum("nl,nlf->lf", ww, c))
-    bound_ms, bound_by = bound(4.0 * N * Lk * F + 8.0 * Lk * F + 4.0 * N * Lk,
-                               2.0 * N * Lk * F + 3.0 * Lk * F,
-                               FP32_FLOPS_PER_S)
+    bound_ms, bound_by = bound(RF.aggregate_work(N, Lk, F))
     row = {"name": "aggregate", "route": "cuda",
            "source": "src/repro_torch/csrc/layer_aggregate.cu",
            "replaces": "src/repro/kernels/layer_aggregate/kernel.py:34",
@@ -527,6 +543,7 @@ def phase_aggregate(n_clients, n_layers, feat):
 def phase_tier_sum(shape):
     import torch
     from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    from repro_torch.roofline import analysis as RF
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = "cuda"
     checks = {}
@@ -559,8 +576,7 @@ def phase_tier_sum(shape):
     stacked = torch.stack(xs)             # outside the timed call
     library_ms = time_ms(lambda: torch.tensordot(w, stacked, dims=1))
     del stacked
-    bound_ms, bound_by = bound(4.0 * (T + 1) * n, (2.0 * T - 1) * n,
-                               FP32_FLOPS_PER_S)
+    bound_ms, bound_by = bound(RF.tier_sum_work(T, n))
     row = {"name": "tier_sum", "route": "cuda",
            "source": "src/repro_torch/csrc/tpgf_fusion.cu",
            "replaces": "src/repro/kernels/tpgf_fusion/kernel.py:64",
@@ -574,13 +590,13 @@ def phase_tier_sum(shape):
     return row
 
 
-def phase_sumsq(cfg, d_max):
+def phase_sumsq(shape):
     import torch
     from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    from repro_torch.roofline import analysis as RF
     gen = torch.Generator(device="cuda").manual_seed(3)
     dev = "cuda"
     checks = {}
-    shape = (d_max, cfg.d_model, cfg.d_ff)
     for dtype in (torch.float32, torch.bfloat16):
         for shp in (shape, (4, 7, 13), (1,)):
             x = torch.randn(shp, generator=gen, device=dev).to(dtype)
@@ -599,7 +615,7 @@ def phase_sumsq(cfg, d_max):
     plain_ms = time_ms(lambda: R.sumsq(x))
     flat = x.view(-1)
     library_ms = time_ms(lambda: torch.dot(flat, flat))
-    bound_ms, bound_by = bound(4.0 * n, 2.0 * n, FP32_FLOPS_PER_S)
+    bound_ms, bound_by = bound(RF.sumsq_work(n))
     row = {"name": "sumsq", "route": "cuda",
            "source": "src/repro_torch/csrc/tpgf_fusion.cu",
            "replaces": "src/repro/kernels/tpgf_fusion/kernel.py:100",
@@ -610,16 +626,6 @@ def phase_sumsq(cfg, d_max):
            "library_call": "torch.dot(x.view(-1), x.view(-1))"}
     emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
     return row
-
-
-def _attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """The (q, k) pairs the masks leave, summed over the rows."""
-    total = 0
-    for r in range(Sq):
-        hi = min(r, Skv - 1) if causal else Skv - 1
-        lo = max(0, r - window + 1) if window > 0 else 0
-        total += max(0, hi - lo + 1)
-    return total
 
 
 def _top_device_kernel(call) -> str:
@@ -660,6 +666,7 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as O, ref as R
+    from repro_torch.roofline import analysis as RF
     gen = torch.Generator(device="cuda").manual_seed(5)
     dev = "cuda"
     B, S, H, K, hd = shape
@@ -749,8 +756,7 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
                         qt, kt, vt, is_causal=True, enable_gqa=True)
             library_ms = time_ms(sdpa)
             backend = _top_device_kernel(sdpa)
-            flops = 4.0 * d * b * h * _attended_pairs(s, s, True, window)
-            nbytes = 2.0 * (2 * q.numel() + kk.numel() + v.numel())
+            nbytes, flops = RF.flash_work(b, s, h, k, d, window)
             return ms, plain_ms, library_ms, flops, nbytes, backend
 
         ms, plain_ms, library_ms, flops, nbytes, backend = timed(
@@ -764,7 +770,7 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
                 ("internvl2", vlm_shape, {}),
                 ("whisper", audio_shape, {})):
             t = timed(*args, **kw)
-            b_ms, b_by = bound(t[4], t[3], BF16_FLOPS_PER_S)
+            b_ms, b_by = bound((t[4], t[3]), "bfloat16")
             case = next(c for c in cases if c[0].startswith(label + "/"))
             at_shapes[label] = {
                 "max_abs_err": {dt: checks[f"{case[0]}/{dt}"]
@@ -775,7 +781,7 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
                 "library_ms": t[2], "library_kernel": t[5],
                 "bound_ms": b_ms, "bound_by": b_by,
                 "gflop": t[3] / 1e9, "mbytes": t[4] / 1e6}
-    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    bound_ms, bound_by = bound((nbytes, flops), "bfloat16")
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
@@ -793,27 +799,11 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
            "hybrid_shape": list(hybrid_shape), "hybrid_ms": h_ms,
            "hybrid_plain_ms": h_plain_ms,
            "hybrid_library_ms": h_library_ms,
-           "hybrid_bound_ms": bound(h_nbytes, h_flops, BF16_FLOPS_PER_S)[0],
+           "hybrid_bound_ms": bound((h_nbytes, h_flops), "bfloat16")[0],
            "at_shapes": at_shapes,
            "ptxas": ptxas_figures(build_log, "flash_attention_bf16_kernel")}
     emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
     return row
-
-
-def _ssd_bound(Bt, S, nh, hd, st, cl=SSD_BOUND_CHUNK):
-    """(bytes, operations) of the SSD scan: the least work the function
-    needs, the two state contractions (C·hᵀ and the state update, 2·hd·st
-    each per row and head), plus the chunked form's own terms at a chunk
-    ``cl`` (fixed at SSD_BOUND_CHUNK, whatever the kernel's own chunk): the
-    causal half of W·u, cl²·hd per (batch, head, chunk), and C·Bᵀ,
-    2·cl²·st per (batch, chunk). Bytes: x and y once each, B, C, dt, A, D
-    and h, fp32."""
-    nc = math.ceil(S / cl)
-    flops = (4.0 * Bt * S * nh * hd * st + Bt * nh * nc * cl * cl * hd
-             + Bt * nc * 2.0 * cl * cl * st)
-    nbytes = 4.0 * (2 * Bt * S * nh * hd + 2 * Bt * S * st + Bt * S * nh
-                    + 2 * nh + Bt * nh * hd * st)
-    return nbytes, flops
 
 
 def phase_ssd_scan(ssm_shape, hybrid_shape, build_log):
@@ -827,6 +817,7 @@ def phase_ssd_scan(ssm_shape, hybrid_shape, build_log):
     the plain version at the chunk ``ssm_apply`` takes (256)."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as O, ref as R
+    from repro_torch.roofline import analysis as RF
     gen = torch.Generator(device="cuda").manual_seed(8)
     dev = "cuda"
 
@@ -894,9 +885,8 @@ def phase_ssd_scan(ssm_shape, hybrid_shape, build_log):
                 time_ms(lambda: R.ssd_ref(x, dt, A, B, C, D, chunk=256)))
             del x, dt, B, C
     ms, plain_ms = times["mamba2"]
-    nbytes, flops = _ssd_bound(*ssm_shape)
-    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
-    hb_bytes, hb_flops = _ssd_bound(*hybrid_shape)
+    nbytes, flops = RF.ssd_work(*ssm_shape)
+    bound_ms, bound_by = bound((nbytes, flops))
     row = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
@@ -910,8 +900,7 @@ def phase_ssd_scan(ssm_shape, hybrid_shape, build_log):
            "hybrid_shape": list(hybrid_shape),
            "hybrid_ms": times["hymba"][0],
            "hybrid_plain_ms": times["hymba"][1],
-           "hybrid_bound_ms": bound(hb_bytes, hb_flops,
-                                    FP32_FLOPS_PER_S)[0],
+           "hybrid_bound_ms": bound(RF.ssd_work(*hybrid_shape))[0],
            "kernel_chunk": O.KERNEL_CHUNK,
            "ptxas": {**ptxas_figures(build_log, "ssd_cb_kernel"),
                      **ptxas_figures(build_log, "ssd_scan_kernel")}}
@@ -979,7 +968,7 @@ def _counts():
 
 
 def phase_path(name, must_launch, forbidden=(), describe=None,
-               same_round=False, **engine_kw):
+               same_round=False, count_flops=False, **engine_kw):
     """Train the fleet two rounds with the kernels on, every launch count
     set to 0 just before and read just after (each kernel of
     ``must_launch`` must have launched, none of ``forbidden``); then the
@@ -988,7 +977,8 @@ def phase_path(name, must_launch, forbidden=(), describe=None,
     to each round's line. ``same_round``: the profiled round's idle share
     is taken against the wall of the SAME round run unprofiled on a copy
     of the engine (a participation process gives every round other
-    clients, so the last round's wall does not measure it). Returns
+    clients, so the last round's wall does not measure it).
+    ``count_flops``: the path's line carries ``_round_flops``. Returns
     (launches, the kernel-on engine)."""
     import torch
     from repro_torch.configs.base import get_config
@@ -1014,7 +1004,8 @@ def phase_path(name, must_launch, forbidden=(), describe=None,
     for head, acc in (("global", acc_global), ("local", acc_local)):
         if not 0.0 <= acc <= 1.0:
             die(f"{name}: evaluate(head={head}) gave {acc}")
-    emit({"phase": name, "config": cfg.name,
+    flops = _round_flops(eng) if count_flops else {}
+    emit({"phase": name, "config": cfg.name, **flops,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "clients": n_clients, "depths": eng.state.fleet.depths.tolist(),
           "widths": eng.state.fleet.widths.tolist(),
@@ -1064,6 +1055,176 @@ def phase_path(name, must_launch, forbidden=(), describe=None,
     return launches, eng
 
 
+def _round_flops(eng):
+    """``counted_flops``: ``repro_torch.roofline.count_flops`` of one round
+    (every matmul of it, backward passes included), run on a copy of
+    ``eng``; ``mfu``: those FLOPs over the wall of the same round run
+    unprofiled on another copy, at the fp32 peak (the ViT's GEMMs run in
+    fp32 with TF32 off). ``eng`` itself runs nothing."""
+    import torch
+    from repro_torch.roofline import analysis as RF
+    timed, counted = copy.deepcopy(eng), copy.deepcopy(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed.run_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flops, _ = RF.count_flops(counted.run_round)
+    del timed, counted
+    torch.cuda.empty_cache()
+    return {"counted_flops": flops, "counted_round_wall_ms": wall * 1e3,
+            "mfu": RF.mfu(flops, wall, "float32"), "mfu_dtype": "float32",
+            "card": RUN["card"]}
+
+
+def _lm_flops(cfg, n_params, kind, seq, batch, wall_s):
+    """``model_flops`` (``repro_torch.roofline``'s 6·N·D for a train step,
+    2·N·D for a prefill or a decode step; N the active share of the live
+    parameters) and ``mfu``: those FLOPs over ``wall_s`` at the peak of the
+    dtype the step's GEMMs run in (the config's)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.roofline import analysis as RF
+    flops = RF.model_flops(cfg, InputShape(kind, seq, batch, kind), n_params,
+                           RF.active_params(cfg, n_params))
+    return flops, RF.mfu(flops, wall_s, cfg.dtype)
+
+
+def phase_sanitize_path():
+    """The sanitizer on the main path's configuration (full-width
+    ViT-16-CIFAR, 8 clients, ``ssfl``, kernels on): SANITIZE_ROUNDS rounds
+    on an engine and on a sanitized engine of the same seed, in turns,
+    bit for bit in every round's loss and in every parameter and local
+    head; ``fuse`` and ``aggregate`` must launch in each sanitized round.
+    The price: each engine's device busy time over one more profiled
+    round, and the median wall of rounds 2-3. Then NaN written into one
+    client's rows of ``device_data.images`` must raise
+    ``SlotSanitizerError`` whose slots hold that client's cohort
+    position (a fresh sanitized engine), and a poisoned sample index must
+    raise "out of bounds" before any launch, after which a healthy round
+    runs and launches the kernels. Any other outcome ends the run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.federated.sanitize import SlotSanitizerError
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("vit16_cifar").replace(use_pallas=True)
+    engines = {"plain": _engine(cfg), "sanitized": _engine(cfg,
+                                                            sanitize=True)}
+    walls = {k: [] for k in engines}
+    losses = {k: [] for k in engines}
+    launches = []
+    seconds = {}
+    t_phase = time.perf_counter()
+    for r in range(SANITIZE_ROUNDS):
+        for label, eng in engines.items():
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = eng.run_round()
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+            losses[label].append(rec["loss"])
+            if label == "sanitized":
+                n = _counts()
+                launches.append({k: n[k] for k in ("fuse", "aggregate")})
+                if not all(launches[-1].values()):
+                    die(f"sanitize_path: round {r + 1} sanitized launched "
+                        f"{launches[-1]}")
+    plain, checked = engines["plain"], engines["sanitized"]
+    same_losses = losses["plain"] == losses["sanitized"]
+    same_params = all(torch.equal(x, y) for tree in ("params", "local_heads")
+                      for x, y in zip(tree_leaves(getattr(plain.state, tree)),
+                                      tree_leaves(getattr(checked.state,
+                                                          tree))))
+    median = {k: statistics.median(v[1:]) for k, v in walls.items()}
+    seconds["rounds"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    busy = {k: _profile(eng.run_round, median[k], f"sanitize_path_{k}",
+                        host=False)
+            for k, eng in engines.items()}
+    seconds["profiles"] = time.perf_counter() - t_phase
+    emit({"phase": "sanitize_path", "config": cfg.name,
+          "clients": checked.state.n_clients, "rounds": SANITIZE_ROUNDS,
+          "losses": losses, "losses_bit_for_bit": same_losses,
+          "params_and_heads_bit_for_bit": same_params,
+          "sanitized_launches": launches,
+          "round_wall_ms": {k: [w * 1e3 for w in v]
+                            for k, v in walls.items()},
+          "median_wall_ms_rounds_2_3": {k: v * 1e3
+                                        for k, v in median.items()},
+          "device_busy_ms": busy,
+          "busy_ratio": busy["sanitized"] / busy["plain"],
+          "wall_ratio": median["sanitized"] / median["plain"],
+          "seconds": seconds, "card": RUN["card"]})
+    if not (same_losses and same_params):
+        die(f"sanitize_path: sanitized rounds differ: losses equal "
+            f"{same_losses}, params and heads equal {same_params}")
+    del plain, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # an injected NaN: the rows of the last client of the shallowest
+    # cohort of several clients (so its position is not 0)
+    t_phase = time.perf_counter()
+    poisoned = _engine(cfg, sanitize=True)
+    cohort = next(c for c in poisoned.state.fleet.cohorts().values()
+                  if len(c) > 1)
+    client, position = int(cohort[-1]), len(cohort) - 1
+    dd = poisoned.device_data
+    lo = int(dd.offsets[client])
+    dd.images[lo:lo + int(dd.sizes[client])] = float("nan")
+    try:
+        poisoned.run_round()
+        die("sanitize_path: a NaN in a client's data did not trip")
+    except SlotSanitizerError as exc:
+        trip = exc
+    emit({"phase": "sanitize_nan", "client": client,
+          "cohort": cohort.tolist(), "position": position,
+          "slots": list(trip.slots), "message": str(trip)[:300],
+          "seconds": time.perf_counter() - t_phase})
+    if position not in trip.slots or "cohort_kernel" not in str(trip):
+        die(f"sanitize_path: NaN in client {client} (position {position}) "
+            f"gave slots {trip.slots}: {trip}")
+    del poisoned, dd, trip
+    torch.cuda.empty_cache()
+
+    # an out-of-bounds sample index: raised on the host before any launch
+    orig = checked._sample_indices
+
+    def past_the_end(ids, steps, batch_size=None):
+        out = orig(ids, steps, batch_size)
+        out[0, 0, 0] = int(checked.device_data.sizes.sum())
+        return out
+
+    checked._sample_indices = past_the_end
+    _zero_counts()
+    try:
+        checked.run_round()
+        die("sanitize_path: an out-of-bounds batch index did not trip")
+    except SlotSanitizerError as exc:
+        oob = str(exc)
+    torch.cuda.synchronize()
+    at_trip = _counts()
+    checked._sample_indices = orig
+    rec = checked.run_round()
+    torch.cuda.synchronize()
+    after = _counts()
+    emit({"phase": "sanitize_oob", "message": oob,
+          "launches_in_the_tripped_round": at_trip,
+          "healthy_round_after": {"loss": rec["loss"],
+                                  "launches": after}})
+    if "out of bounds" not in oob or any(at_trip.values()) \
+            or not math.isfinite(rec["loss"]) \
+            or not (after["fuse"] and after["aggregate"]):
+        die(f"sanitize_path: out of bounds: {oob!r}, launches in the "
+            f"tripped round {at_trip}, the next round {rec['loss']} with "
+            f"{after}")
+    del checked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_clip_path(cfg, params, d):
     """``fuse_tree(tau=0.5)`` on the depth-``d`` client's gradient shapes
     (random trees, the clipped one scaled to a norm near 1 so the clip
@@ -1073,6 +1234,7 @@ def phase_clip_path(cfg, params, d):
     from repro_torch.core import tpgf as T
     from repro_torch.core.supernet import split_params
     from repro_torch.kernels.tpgf_fusion import ops as O
+    from repro_torch.roofline import analysis as RF
     from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
 
     client = split_params(cfg, params, d)[0]
@@ -1107,8 +1269,7 @@ def phase_clip_path(cfg, params, d):
         return total
 
     sumsq_tree_ms = time_ms(tree_sumsq)
-    sumsq_tree_bound_ms, _ = bound(4.0 * n, 2.0 * n,
-                                   FP32_FLOPS_PER_S)
+    sumsq_tree_bound_ms, _ = bound(RF.sumsq_work(n))
     fuse_tree_ms = time_ms(lambda: O.fuse_tree(gc, gs, w, tau=0.5))
     plain_ms = time_ms(lambda: T.fuse_gradients(
         T.clip_by_global_l2(gc, 0.5)[0], gs, w))
@@ -1723,6 +1884,11 @@ def phase_serve_path(name, arch, expect, *, batch=SERVE_BATCH,
         die(f"{name}: prefill logits {tuple(logits_on.shape)}, finite "
             f"{finite}")
     ntok = batch * (npch + prompt)
+    prefill_flops, prefill_mfu = _lm_flops(cfg, n_params, "prefill",
+                                           npch + prompt, batch, prefill_s)
+    decode_flops, decode_mfu = _lm_flops(cfg, n_params, "decode",
+                                         npch + prompt, batch,
+                                         decode_s / SERVE_GEN)
     audio = ({"enc_frames": cfg.enc_frames,
               "encoder_frames_per_s": batch * cfg.enc_frames / prefill_s,
               "decoder_tokens_per_s": ntok / prefill_s}
@@ -1737,6 +1903,10 @@ def phase_serve_path(name, arch, expect, *, batch=SERVE_BATCH,
           "prefill_tokens_per_s": ntok / prefill_s,
           "decode_ms_per_step": decode_s * 1e3 / SERVE_GEN,
           "decode_tokens_per_s": batch * SERVE_GEN / decode_s,
+          "model_flops": {"prefill": prefill_flops,
+                          "decode_step": decode_flops},
+          "mfu": {"prefill": prefill_mfu, "decode": decode_mfu},
+          "mfu_dtype": cfg.dtype, "card": RUN["card"],
           "peak_mem_gb": peak_gb, **audio,
           "generated_req0": gen_tokens[0, :8].tolist()})
 
@@ -1789,6 +1959,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 3
 # kernels on vs off after step 1 (the runs' losses are equal before the
 # first update): |Δloss| / loss
 TRAIN_LOSS_RTOL = 1e-2
+
+
+def _train_flops(cfg, n_params, seq, wall_ms):
+    """A train path's ``model_flops`` for one step of TRAIN_BATCH × ``seq``
+    tokens and its ``mfu`` over the median step wall (``_lm_flops``)."""
+    flops, mfu = _lm_flops(cfg, n_params, "train", seq, TRAIN_BATCH,
+                           wall_ms / 1e3)
+    return {"model_flops": flops, "mfu": mfu, "mfu_dtype": cfg.dtype,
+            "card": RUN["card"]}
 
 
 def _bf16_order(t):
@@ -1946,6 +2125,7 @@ def phase_lm_train_path(arch):
                   "steps": TRAIN_STEPS, "launches": launches,
                   "step_wall_ms": wall_ms,
                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3),
+                  **_train_flops(cfg, n_params, TRAIN_SEQ, wall_ms),
                   "peak_mem_gb": peak_gb})
             _profile(lambda: step_fn(params, opt_state, last),
                      wall_ms / 1e3, "lm_train")
@@ -1987,14 +2167,16 @@ def phase_dense_train_path(arch):
         die(f"dense_train_path: a kernel launched: {launches}")
     walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
     wall_ms = statistics.median(walls)
+    n_params = param_count(params)
     emit({"phase": "dense_train_path", "config": cfg.name,
           **_config_fields(cfg), "dtype": cfg.dtype,
-          "params": param_count(params), "remat": cfg.remat,
+          "params": n_params, "remat": cfg.remat,
           "microbatches": cfg.microbatches,
           "split_depth": cfg.resolved_split_depth, "batch": TRAIN_BATCH,
           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "launches": launches,
           "step_wall_ms": wall_ms,
           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3),
+          **_train_flops(cfg, n_params, TRAIN_SEQ, wall_ms),
           "peak_mem_gb": peak_gb})
     _profile(lambda: step_fn(params, opt_state, last), wall_ms / 1e3,
              "dense_train")
@@ -2029,9 +2211,10 @@ def phase_moe_train_path(arch, layers):
         die(f"moe_train_path: the prefix's router aux is {aux}")
     walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
     wall_ms = statistics.median(walls)
+    n_params = param_count(params)
     emit({"phase": "moe_train_path", "config": cfg.name,
           **_config_fields(cfg), "layers_of": get_config(arch).n_layers,
-          "dtype": cfg.dtype, "params": param_count(params),
+          "dtype": cfg.dtype, "params": n_params,
           "remat": cfg.remat, "microbatches": cfg.microbatches,
           "split_depth": cfg.resolved_split_depth,
           "moment_dtype": cfg.adam_moment_dtype, "batch": TRAIN_BATCH,
@@ -2039,6 +2222,7 @@ def phase_moe_train_path(arch, layers):
           "prefix_router_aux_microbatch0": aux,
           "step_wall_ms": wall_ms,
           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3),
+          **_train_flops(cfg, n_params, TRAIN_SEQ, wall_ms),
           "peak_mem_gb": peak_gb})
     _profile(lambda: step_fn(params, opt_state, last), wall_ms / 1e3,
              "moe_train")
@@ -2072,9 +2256,10 @@ def phase_audio_train_path(arch):
         die(f"audio_train_path: a kernel launched: {launches}")
     walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
     wall_ms = statistics.median(walls)
+    n_params = param_count(params)
     emit({"phase": "audio_train_path", "config": cfg.name,
           **_config_fields(cfg), "dtype": cfg.dtype,
-          "params": param_count(params), "remat": cfg.remat,
+          "params": n_params, "remat": cfg.remat,
           "microbatches": cfg.microbatches,
           "split_depth": cfg.resolved_split_depth,
           "moment_dtype": cfg.adam_moment_dtype, "batch": TRAIN_BATCH,
@@ -2082,6 +2267,7 @@ def phase_audio_train_path(arch):
           "launches": launches, "use_pallas_refused": refusal,
           "step_wall_ms": wall_ms,
           "tokens_per_s": TRAIN_BATCH * AUDIO_TRAIN_SEQ / (wall_ms / 1e3),
+          **_train_flops(cfg, n_params, AUDIO_TRAIN_SEQ, wall_ms),
           "peak_mem_gb": peak_gb})
     _profile(lambda: step_fn(params, opt_state, last), wall_ms / 1e3,
              "audio_train")
@@ -2093,16 +2279,19 @@ def _is_port_kernel(name: str) -> bool:
     return any(f"(anonymous namespace)::{k}" in name for k in PORT_KERNELS)
 
 
-def _profile(step, unprofiled_wall_s: float, path: str):
+def _profile(step, unprofiled_wall_s: float, path: str, host: bool = True):
     """One more call of ``step`` (a round, a prefill) under
     torch.profiler: device time by kernel, and the device's idle share
-    against the wall time of the same step unprofiled."""
+    against the wall time of the same step unprofiled. Returns the device
+    busy ms. ``host=False`` traces the card alone (no host op rows to
+    process: a step of many small ops profiles in a fraction of the
+    time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if host else [ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2136,6 +2325,7 @@ def _profile(step, unprofiled_wall_s: float, path: str):
           "port_kernels": port,
           "port_kernels_share_of_busy": (sum(r["device_ms"] for r in port)
                                          / busy_ms if busy_ms else 0.0)})
+    return busy_ms
 
 
 # ------------------------------------------------------------------- ncu
@@ -2228,6 +2418,53 @@ def _largest_client_leaf(cfg):
     return tuple(max(tree_leaves(client), key=lambda x: x.numel()).shape)
 
 
+def kernel_shapes():
+    """The shapes at which each kernel is checked, timed and bounded:
+    the largest call of the path that carries it (computed on the host:
+    configs, the main path's fleet, meta tensors). ``fuse`` and ``sumsq``
+    at the deepest client's MLP leaf, ``fuse`` in bf16 at Mamba2's largest
+    client leaf, ``aggregate`` over the 8 clients' MLP stack, ``tier_sum``
+    at the server rows of the shallowest mixed-width cohort; the serving
+    kernels at each serve path's prefill, (B, S, H, K, head_dim) and
+    Mixtral's window, (B, S, heads, head_dim, state) for ``ssd_scan``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.allocation import allocate_widths
+    from repro_torch.federated.simulator import make_fleet
+    cfg = get_config("vit16_cifar")
+    fleet = make_fleet(cfg, 8, seed=0)
+    d_max = int(fleet.depths.max())
+    widths = allocate_widths([p.mem_gb for p in fleet.profiles], LADDER)
+    d_mix = min(int(d) for d in set(fleet.depths.tolist())
+                if len(set(widths[fleet.depths == d])) > 1)
+    lm = get_config(SERVE_ARCH)
+    ssm, hybrid = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
+    moe, vlm = get_config(MOE_ARCH), get_config(VLM_ARCH)
+    audio = get_config(AUDIO_ARCH)
+
+    def attention(c, batch, prompt):
+        return (batch, prompt, c.n_heads, c.n_kv_heads, c.resolved_head_dim)
+
+    def scan(c):
+        return (SERVE_BATCH, SERVE_PROMPT, c.ssm_n_heads, c.ssm_head_dim,
+                c.ssm_state)
+
+    return {"fuse": (d_max, cfg.d_model, cfg.d_ff),
+            "fuse_bf16": _largest_client_leaf(ssm),
+            "aggregate": (8, cfg.n_layers, cfg.d_model * cfg.d_ff),
+            "tier_sum": (cfg.n_layers - d_mix, cfg.d_model, cfg.d_ff),
+            "sumsq": (d_max, cfg.d_model, cfg.d_ff),
+            "flash": attention(lm, SERVE_BATCH, SERVE_PROMPT),
+            "flash_hymba": attention(hybrid, SERVE_BATCH, SERVE_PROMPT),
+            "flash_mixtral": attention(moe, MOE_SERVE_BATCH,
+                                       MOE_SERVE_PROMPT)
+            + (moe.sliding_window,),
+            "flash_internvl2": attention(vlm, SERVE_BATCH,
+                                         vlm.n_patches + VLM_SERVE_TEXT),
+            "flash_whisper": attention(audio, AUDIO_SERVE_BATCH,
+                                       AUDIO_SERVE_PROMPT),
+            "ssd_scan": scan(ssm), "ssd_scan_hymba": scan(hybrid)}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         die(f"{SRC / 'repro_torch'} not found: run this script from the "
@@ -2249,48 +2486,31 @@ def main() -> None:
     import torch
     logs = phase_build()
     from repro_torch.configs.base import get_config
-    from repro_torch.core.allocation import allocate_widths
-    from repro_torch.federated.simulator import make_fleet
     cfg = get_config("vit16_cifar")
-    fleet = make_fleet(cfg, 8, seed=0)
-    d_max = int(fleet.depths.max())
-    # the server rows of the shallowest mixed-width cohort: tier_sum's
-    # largest leaf on the width path
-    widths = allocate_widths([p.mem_gb for p in fleet.profiles], LADDER)
-    d_mix = min(int(d) for d in set(fleet.depths.tolist())
-                if len(set(widths[fleet.depths == d])) > 1)
     lm = get_config(SERVE_ARCH)
     ssm, hybrid = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
-    moe, vlm = get_config(MOE_ARCH), get_config(VLM_ARCH)
-    audio = get_config(AUDIO_ARCH)
-    rows = [phase_fuse((d_max, cfg.d_model, cfg.d_ff),
-                       _largest_client_leaf(ssm)),
-            phase_aggregate(8, cfg.n_layers, cfg.d_model * cfg.d_ff),
-            phase_tier_sum((cfg.n_layers - d_mix, cfg.d_model, cfg.d_ff)),
-            phase_sumsq(cfg, d_max),
-            phase_flash(*((SERVE_BATCH, SERVE_PROMPT, c.n_heads,
-                           c.n_kv_heads, c.resolved_head_dim)
-                          for c in (lm, hybrid)),
-                        (MOE_SERVE_BATCH, MOE_SERVE_PROMPT, moe.n_heads,
-                         moe.n_kv_heads, moe.resolved_head_dim,
-                         moe.sliding_window),
-                        (SERVE_BATCH, vlm.n_patches + VLM_SERVE_TEXT,
-                         vlm.n_heads, vlm.n_kv_heads, vlm.resolved_head_dim),
-                        (AUDIO_SERVE_BATCH, AUDIO_SERVE_PROMPT,
-                         audio.n_heads, audio.n_kv_heads,
-                         audio.resolved_head_dim),
-                        logs["flash_attention"]),
-            phase_ssd_scan(*((SERVE_BATCH, SERVE_PROMPT, c.ssm_n_heads,
-                              c.ssm_head_dim, c.ssm_state)
-                             for c in (ssm, hybrid)), logs["ssd_scan"])]
+    vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    shapes = kernel_shapes()
+    d_max = shapes["fuse"][0]
+    rows = [phase_fuse(shapes["fuse"], shapes["fuse_bf16"]),
+            phase_aggregate(*shapes["aggregate"]),
+            phase_tier_sum(shapes["tier_sum"]),
+            phase_sumsq(shapes["sumsq"]),
+            phase_flash(*(shapes[k] for k in (
+                "flash", "flash_hymba", "flash_mixtral", "flash_internvl2",
+                "flash_whisper")), logs["flash_attention"]),
+            phase_ssd_scan(shapes["ssd_scan"], shapes["ssd_scan_hymba"],
+                           logs["ssd_scan"])]
     torch.cuda.empty_cache()
     phase_ncu()
     launches = {}
-    main_launches, eng = phase_path("main_path", ("fuse", "aggregate"))
+    main_launches, eng = phase_path("main_path", ("fuse", "aggregate"),
+                                    count_flops=True)
     launches["main_path"] = main_launches
     launches["clip_path"] = phase_clip_path(cfg, eng.state.params, d_max)
     del eng
     torch.cuda.empty_cache()
+    timed_phase("sanitize_path", phase_sanitize_path)
     launches["width_path"] = phase_path(
         "width_path", ("fuse", "aggregate", "tier_sum"),
         width_tiers=LADDER, cross_tier="fused")[0]

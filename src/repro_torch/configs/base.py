@@ -9,11 +9,16 @@ dense causal LMs (``llama3_2_3b``, ``qwen2_5_3b``, ``gemma_2b``,
 ``hymba_1_5b``, the moe ``mixtral_8x7b`` and ``grok_1_314b``, the
 vlm ``internvl2_2b`` and the audio encoder-decoder ``whisper_small``,
 each with its ``reduced()`` form: every config of the JAX package.
+
+It also carries the reference's input-shape matrix (``InputShape``,
+``INPUT_SHAPES``, ``ARCH_IDS``, ``skip_reason``, ``all_combos``), which
+the cost model (``repro_torch.roofline``) reads.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -125,6 +130,38 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+ARCH_IDS = [
+    "grok_1_314b",
+    "internvl2_2b",
+    "qwen2_5_3b",
+    "whisper_small",
+    "mixtral_8x7b",
+    "llama3_2_3b",
+    "internlm2_1_8b",
+    "mamba2_2_7b",
+    "gemma_2b",
+    "hymba_1_5b",
+]
+
+# The paper's own backbone (ViT-16 on CIFAR) — extra, not in the 10x4 matrix.
+EXTRA_ARCH_IDS = ["vit16_cifar"]
+
+
 def canonical_id(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
 
@@ -137,3 +174,18 @@ def get_config(arch: str) -> ModelConfig:
 def get_reduced(arch: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{canonical_id(arch)}")
     return mod.reduced()
+
+
+def skip_reason(arch: str, shape_name: str) -> Optional[str]:
+    """Return a reason string if (arch, shape) is skipped, else None."""
+    cfg = get_config(arch)
+    if shape_name == "long_500k" and cfg.is_encdec:
+        return ("enc-dec ASR decoder has no 500k autoregressive regime "
+                "(cross-attn over fixed 1500-frame encoder output); "
+                "see DESIGN.md shape/skip matrix")
+    return None
+
+
+def all_combos() -> Tuple[Tuple[str, str], ...]:
+    return tuple((a, s) for a in ARCH_IDS for s in INPUT_SHAPES
+                 if skip_reason(a, s) is None)

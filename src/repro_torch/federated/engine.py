@@ -44,8 +44,18 @@ in the checkpoint manifest;
 uninterrupted one. The manifest is the reference's: a checkpoint written
 by either package restores in the other.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-queue item: ``mesh=`` (fleet sharding), ``sanitize=True``.
+``sanitize=True`` is the debug mode for a fleet that diverges
+(``federated/sanitize.py``): the batch indices are bounds-checked on the
+host before they reach the device, and every cohort step runs under a
+float check that flags an op's NaN output or a division by zero; a trip
+raises ``SlotSanitizerError`` with the cohort positions whose outputs are
+non-finite. A healthy sanitized round is bit for bit the unsanitized one.
+With ``sanitize=False`` (the default) an out-of-bounds batch index on the
+card is a device-side assert, which the CUDA context does not survive
+(the reference's JAX gather clamps it).
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP queue
+item: ``mesh=`` (fleet sharding).
 """
 from __future__ import annotations
 
@@ -61,6 +71,7 @@ from repro_torch.core.fault import ArrivalProcess, AvailabilityModel
 from repro_torch.data.synthetic import as_device_data, make_federated_data
 from repro_torch.device import resolve_device
 from repro_torch.federated import metrics as MET
+from repro_torch.federated.sanitize import checked_cohort_step, guard_gather
 from repro_torch.federated.simulator import make_fleet
 from repro_torch.federated.state import TrainState, init_train_state
 from repro_torch.federated.strategies import (RoundContext, Strategy,
@@ -100,10 +111,7 @@ class Engine:
             raise NotImplementedError(
                 "Engine(mesh=): fleet sharding is ROADMAP queue 1, "
                 "\"Fleet sharding and multi-device\"")
-        if sanitize:
-            raise NotImplementedError(
-                "Engine(sanitize=True): the sanitizer mode is ROADMAP "
-                "queue 1, \"Tooling counterparts\"")
+        self.sanitize = bool(sanitize)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = (get_strategy(strategy)
@@ -169,14 +177,17 @@ class Engine:
         ctx = RoundContext(avail=avail,
                            participants=self._draw_participants(),
                            batch_fn=self._stack_batches,
-                           sample_indices=self._sample_indices,
+                           sample_indices=(self._guarded_sample_indices
+                                           if self.sanitize
+                                           else self._sample_indices),
                            staleness=self._staleness.copy())
+        step = checked_cohort_step if self.sanitize else strat.cohort_step
         ws = strat.init_round(self, ctx)
         stats = MET.RoundStats()
         server_busy_s = 0.0
         head_trained = False
         for d, ids in strat.cohorts(self, ctx).items():
-            res = strat.cohort_step(self, ctx, ws, d, ids)
+            res = step(self, ctx, ws, d, ids)
             strat.fold_server(self, ws, d, ids, res)
             server_busy_s += self._account_cohort(stats, ctx, d, ids, res)
             if res.server_params == 0 or bool(ctx.avail[ids].any()):
@@ -226,6 +237,13 @@ class Engine:
         """[steps, len(ids), B] flat-dataset indices from ``state.rng``."""
         bs = self.batch_size if batch_size is None else batch_size
         return self.device_data.sample_indices(ids, steps, bs, self.state.rng)
+
+    def _guarded_sample_indices(self, ids, steps: int,
+                                batch_size: int = None):
+        """``_sample_indices`` bounds-checked against the flat dataset on
+        the host (the sanitizer's gather guard)."""
+        return guard_gather(self._sample_indices(ids, steps, batch_size),
+                            int(self.device_data.sizes.sum()))
 
     def _account_cohort(self, stats: MET.RoundStats, ctx: RoundContext,
                         d: int, ids, res) -> float:
@@ -442,10 +460,11 @@ class EngineBuilder:
     def execution(self, *, device=None, mesh=None, sanitize: bool = False,
                   width_tiers=None,
                   cross_tier: str = "fused") -> "EngineBuilder":
-        """The device to run on (None = the card), the supernet width
-        ladder (e.g. ``(0.5, 1.0)``) and the cross-tier mode ("fused" or
-        "chained"), plus the reference's execution knobs that the port
-        does not run yet (``mesh``, ``sanitize``)."""
+        """The device to run on (None = the card), the sanitizer mode
+        (``sanitize=True``: the gather guard and the float check on every
+        cohort step), the supernet width ladder (e.g. ``(0.5, 1.0)``) and
+        the cross-tier mode ("fused" or "chained"), plus the reference's
+        fleet mesh, which the port does not run yet (``mesh``)."""
         self._kw.update(device=device, mesh=mesh, sanitize=sanitize,
                         width_tiers=width_tiers, cross_tier=cross_tier)
         return self

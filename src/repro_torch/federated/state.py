@@ -115,7 +115,7 @@ class TrainState:
         self.round_idx = int(manifest["step"])
         batch_rng = self.last_restore_meta.get("batch_rng")
         if batch_rng is not None:
-            self.rng = np.random.default_rng()
+            self.rng = np.random.default_rng()  # fleetlint: disable=FL004 — empty shell; state overwritten next line from the checkpoint
             self.rng.bit_generator.state = batch_rng
         return self
 

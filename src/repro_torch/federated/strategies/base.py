@@ -12,6 +12,8 @@ method-specific pieces:
                  server view
   aggregate    — produce the next global params + the round's loss scalar
   comm_cost    — per-client bytes and message counts for the round
+  slot_outputs — a cohort's per-client outputs, for the sanitizer's
+                 slot attribution (``Engine(sanitize=True)``)
 
 The port registers every strategy of the reference: ``ssfl``, the
 SplitFed baselines ``sfl``/``dfl`` (``splitfed.py``), the FedAvg family
@@ -71,6 +73,8 @@ class Strategy:
     """Base: shared hooks with no-op defaults."""
 
     name: str = "?"
+    # what a sanitizer trip names: the reference's kernel for the method
+    kernel_name: str = "cohort_step"
 
     def fixed_depth(self, cfg) -> Optional[int]:
         """A rigid split point for every client, or None for Eq.1 depths."""
@@ -128,12 +132,30 @@ class Strategy:
         return new_params, float(np.mean(losses[mask]))
 
     def comm_cost(self, engine, d: int, available: bool,
-                  ids) -> Tuple[np.ndarray, int]:
+                  ids=None) -> Tuple[np.ndarray, int]:
         """-> (bytes on the wire this round, messages) per client of the
         cohort ``ids`` of depth ``d``: int64 arrays aligned with ``ids``,
-        or shared scalars. A strategy may omit ``ids`` (the reference's
-        three-argument protocol); it then returns scalars."""
+        or shared scalars. Without ``ids`` (the reference's
+        three-argument protocol; a strategy may omit the parameter) it
+        returns scalars."""
         raise NotImplementedError
+
+    def slot_outputs(self, engine, ws: Dict[str, Any], ids: np.ndarray,
+                     res: CohortResult) -> Dict[str, Any]:
+        """The cohort's per-client outputs, every leaf leading with the
+        cohort's axis (position ``j`` holds client ``ids[j]``): its losses,
+        its rows of the workspace's client trees and of the local heads.
+        The sanitizer reads them after a trip to name the positions whose
+        outputs are non-finite."""
+        idx = torch.as_tensor(np.asarray(ids, np.int64),
+                              device=engine.device)
+        rows = lambda tree: tree_map(lambda x: x[idx], tree)
+        out = {"local": rows(engine.state.local_heads)}
+        if res.losses is not None:
+            out["losses"] = res.losses
+        if "client_stack" in ws:
+            out["client"] = rows(ws["client_stack"])
+        return out
 
 
 # --------------------------------------------------- full-fleet workspace

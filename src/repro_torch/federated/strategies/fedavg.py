@@ -52,6 +52,8 @@ class FedAvg(Strategy):
     ``repro_torch.optim.Optimizer`` may be passed as ``server_opt``: it
     gets the pseudo-gradient ``theta_old - theta_avg`` once a round."""
 
+    kernel_name = "step_kernel"
+
     def __init__(self, server_momentum: float = 0.0,
                  server_opt: Optimizer = None):
         if server_momentum and server_opt is not None:
@@ -104,6 +106,12 @@ class FedAvg(Strategy):
         nparams = M.param_count(state.params)
         return CohortResult(nparams, 0, losses=ws["losses"])
 
+    def slot_outputs(self, engine, ws, ids, res):
+        # each client's trained full model, stacked along the cohort axis
+        return {"losses": res.losses,
+                "model": tree_map(lambda *xs: torch.stack(xs),
+                                  *ws["models"])}
+
     def aggregate(self, engine, ws):
         ids, models = ws["ids"], ws["models"]
         if ids is None:   # nobody arrived this round
@@ -133,7 +141,7 @@ class FedAvg(Strategy):
         engine.state.opt_state["server"] = cur
         return apply_updates(params, updates)
 
-    def comm_cost(self, engine, d, available, ids):
+    def comm_cost(self, engine, d, available, ids=None):
         return 2 * MET.tree_bytes(engine.state.params), 2
 
 

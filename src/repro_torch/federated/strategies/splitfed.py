@@ -67,6 +67,8 @@ def _split_grads(cfg, wcfg, client_p, server_p, batch):
 class SplitFedBase(Strategy):
     """Shared SFL/DFL round logic; subclasses pick split and weighting."""
 
+    kernel_name = "cohort_kernel"
+
     def client_weights(self, depths, mask) -> np.ndarray:
         """[N] fp32 aggregation weights over the full fleet; ``mask``
         marks the clients that trained this round (0 elsewhere)."""
@@ -223,7 +225,7 @@ class SplitFedBase(Strategy):
                 torch.as_tensor(self.client_weights(dep, m), device=dev),
                 mask=m, use_pallas=cfg.use_pallas, widths=widths))
 
-    def comm_cost(self, engine, d, available, ids):
+    def comm_cost(self, engine, d, available, ids=None):
         # SplitFed ships BOTH client- and server-side nets through the fed
         # server each round; a stalled client moves no useful bytes. One
         # shared scalar for the whole cohort.

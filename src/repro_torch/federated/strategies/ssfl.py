@@ -58,6 +58,8 @@ from repro_torch.tree import tree_map, tree_structure
 @register_strategy("ssfl")
 class SuperSFL(Strategy):
 
+    kernel_name = "cohort_kernel"
+
     def init_round(self, engine, ctx: RoundContext) -> Dict[str, Any]:
         sname = engine.cfg.split_stack_name
         ws = base.fleet_workspace(engine)
@@ -234,13 +236,18 @@ class SuperSFL(Strategy):
                 cfg, g, s, dep, l, mask=m, use_pallas=cfg.use_pallas,
                 widths=widths)[0])
 
-    def comm_cost(self, engine, d, available, ids):
+    def comm_cost(self, engine, d, available, ids=None):
         # only the client subnetwork crosses the network (paper §III-C);
         # fallback mode skips the smashed-activation traffic. The smashed
         # data is full d_model at every width, so only the parameter
-        # download scales with each client's width tier.
+        # download scales with each client's width tier; without ``ids``
+        # (the three-argument protocol) one full-width scalar
         per_step = 2 * engine.smashed_bytes(d) if available else 0
         msgs = 2 + 2 * engine.local_steps
+        if ids is None:
+            pbytes = SN.client_param_bytes(engine.cfg, engine.state.params,
+                                           d)
+            return 2 * pbytes + engine.local_steps * per_step, msgs
         widths = engine.state.fleet.widths
         by_tier: Dict[float, int] = {}
         for w in {float(widths[i]) for i in ids}:

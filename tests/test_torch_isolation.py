@@ -48,7 +48,8 @@ def test_port_sources_exist():
                  "federated/strategies/unstable.py",
                  "federated/strategies/async_buffered.py",
                  "federated/strategies/hasfl.py", "federated/buffer.py",
-                 "federated/round.py"):
+                 "federated/round.py", "federated/sanitize.py",
+                 "roofline/analysis.py", "analysis/fleetlint.py"):
         assert want in names, want
     for example in ("quickstart_torch.py", "fault_tolerance_torch.py"):
         assert (ROOT / "examples" / example).exists(), example

@@ -640,3 +640,102 @@ def test_whisper_prefill_on_the_card_launches_flash_in_each_decoder_layer(
     assert c_on["cross_k"].shape == (12, 2, 1500, 12, 64)
     for key in ("cross_k", "cross_v"):
         assert torch.equal(c_on[key], c_off[key]), key
+
+
+# ------------------------------------------------------- the sanitizer mode
+
+def _vit_engine(cuda, **kw):
+    """The reduced ViT fleet of the scenario rounds (6 clients, seed 0,
+    kernels on) under ``ssfl``."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.federated import Engine
+    cfg = get_reduced("vit16_cifar").replace(
+        n_layers=4, d_model=48, n_heads=4, n_kv_heads=4, head_dim=12,
+        d_ff=96, image_size=16, n_classes=6, use_pallas=True)
+    return Engine(cfg, 6, "ssfl", device=cuda, seed=0, lr=0.3,
+                  local_steps=2, batch_size=8, availability=0.8, **kw)
+
+
+def _launch_counts():
+    from repro_torch.kernels.layer_aggregate.ops import aggregate_leaf
+    from repro_torch.kernels.tpgf_fusion.ops import fuse_leaf
+    return {"fuse": fuse_leaf.launches, "aggregate": aggregate_leaf.launches}
+
+
+def test_sanitized_round_on_the_card_launches_and_is_bit_for_bit(cuda):
+    """A sanitized round with the kernels on launches ``fuse`` and
+    ``aggregate`` and equals the unsanitized round bit for bit (losses,
+    params, local heads): the float check only reads."""
+    from repro_torch.tree import tree_leaves
+    plain, checked = _vit_engine(cuda), _vit_engine(cuda, sanitize=True)
+    for _ in range(2):
+        before = _launch_counts()
+        rec = checked.run_round()
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        assert all(after[k] > before[k] for k in after), (before, after)
+        assert plain.run_round()["loss"] == rec["loss"]
+    for tree in ("params", "local_heads"):
+        for x, y in zip(tree_leaves(getattr(plain.state, tree)),
+                        tree_leaves(getattr(checked.state, tree))):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("bad", [10_000_000, -1],
+                         ids=["past-the-end", "negative"])
+def test_out_of_bounds_index_on_the_card_raises_before_any_launch(cuda, bad):
+    """The gather guard raises on the host before any index reaches the
+    card (where it would be a device-side assert the context does not
+    survive) and before any kernel launch; the next round then runs."""
+    import numpy as np
+    from repro_torch.federated.sanitize import SlotSanitizerError
+    eng = _vit_engine(cuda, sanitize=True)
+    orig = eng._sample_indices
+
+    def poisoned(ids, steps, batch_size=None):
+        out = orig(ids, steps, batch_size)
+        out[0, 0, 0] = bad
+        return out
+
+    eng._sample_indices = poisoned
+    before = _launch_counts()
+    with pytest.raises(SlotSanitizerError, match="out of bounds"):
+        eng.run_round()
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    eng._sample_indices = orig
+    assert np.isfinite(eng.run_round()["loss"])
+    assert all(v > before[k] for k, v in _launch_counts().items())
+
+
+def test_float_check_ignores_the_kernels_uninitialised_outputs(cuda):
+    """Every wrapper allocates its output with ``empty_like`` and writes
+    it from the kernel; the allocator is first handed back NaN-filled
+    blocks, so a check of the uninitialised outputs would trip. The
+    results read afterwards are checked and finite."""
+    from repro_torch.federated.sanitize import FloatCheck
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.layer_aggregate.ops import aggregate_leaf
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.tpgf_fusion.ops import (fuse_leaf, sumsq_leaf,
+                                                     tier_sum_leaf)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rand = lambda *s: torch.randn(s, generator=g, device=cuda)
+    a, b, c, s = rand(4, 96, 48), rand(4, 96, 48), rand(6, 4, 999), rand(4, 999)
+    w = torch.tensor(0.3, device=cuda)
+    q, k, v = (rand(2, 256, 4, 64).bfloat16() for _ in range(3))
+    x, B, C = rand(2, 256, 4, 64), rand(2, 256, 16), rand(2, 256, 16)
+    dt = torch.rand((2, 256, 4), generator=g, device=cuda) * 0.1 + 0.01
+    A, D = -torch.rand(4, generator=g, device=cuda) - 0.5, rand(4)
+    garbage = torch.full((64 << 20,), float("nan"), device=cuda)
+    del garbage                                   # NaN blocks, now free
+    with FloatCheck() as check:
+        outs = [fuse_leaf(a, b, w), tier_sum_leaf([a, b], torch.rand(
+                    2, generator=g, device=cuda)),
+                sumsq_leaf(a), aggregate_leaf(c, torch.rand(
+                    (6, 4), generator=g, device=cuda), s, 0.01),
+                flash_attention(q, k, v, causal=True),
+                *ssd_scan(x, dt, A, B, C, D)]
+        total = sum(o.float().sum() for o in outs)
+    assert check.failure() is None
+    assert bool(torch.isfinite(total))
