@@ -11,8 +11,9 @@ Phases, one JSON line each (plus the card's name and power limit as
   1. environment — card, power limit, torch and CUDA versions; TF32 off;
   2. build — every CUDA kernel of the port, one ``nvcc`` per source, all
      started together, from ``src/repro_torch/csrc``;
-  3. kernels — each kernel's wrapper (``fuse``, ``aggregate``,
-     ``tier_sum``, ``sumsq``, ``flash_attention``, ``ssd_scan``) against
+  3. kernels — each kernel's wrapper (``fuse``, ``aggregate`` and its
+     numerator mode ``aggregate_numerator``, ``tier_sum``, ``sumsq``,
+     ``flash_attention``, ``ssd_scan``) against
      its plain PyTorch version on the card at the paths' shapes (and
      ragged, unaligned, zero-weight, windowed, MQA, every head dim, bf16,
      every (head_dim, state) pair, no-D and overflow cases), with times
@@ -42,6 +43,26 @@ Phases, one JSON line each (plus the card's name and power limit as
      the path's line carries ``counted_flops`` (``count_flops`` of one
      round, on a copy of the engine) and ``mfu``, its share of the fp32
      peak over the same round's wall, beside the card's name and limit;
+  4a. fleet mesh path — the main path's fleet, seed and settings on a
+     fleet mesh (``Engine(mesh=launch.mesh.make_fleet_mesh(R))``), two
+     rounds, kernels on. One NCCL rank in this process: bit for bit the
+     meshless run (losses, params, local heads), with the same launches.
+     Two gloo ranks sharing the card, each this script started again
+     (``--fleet-rank <r> <world> <backend> <dir>``, an internal mode like
+     ``--ncu-target``; a ``file://`` store in a temporary directory, a
+     120 s group timeout): losses and params within 1e-4 of the meshless run, the
+     replicated state bit for bit on both ranks after each round, the
+     ``fuse`` launches of the two ranks summing to the meshless run's,
+     and each rank running Eq. 8 through ``aggregate_numerator`` as many
+     times as the meshless run launches ``aggregate``; each rank's line
+     carries its clients, round walls, peak memory, the bytes it
+     all-reduced and the seconds its collectives took, beside the card's
+     name and limit. A rank that cannot start on the card, a failed
+     collective, a rank that exits non-zero: the run fails.
+     ``python3 chip_smoke.py --fleet-nccl`` on a machine of several
+     cards runs only this phase's multi-rank part, with one NCCL rank
+     per card (the backend a deployment uses), held to the same gates,
+     after the environment and build phases;
   5. width path — the same fleet on the width ladder (0.25, 0.5, 0.75,
      1.0) with ``cross_tier="fused"``: two mixed-width cohorts, so
      ``fuse``, ``aggregate`` and ``tier_sum`` must launch; kernels off
@@ -178,7 +199,9 @@ Phases, one JSON line each (plus the card's name and power limit as
      through ``launch/train.py``'s config and loop (one microbatch,
      bf16, remat, ``adamw(1e-3)``) with the kernels off, 3 steps of
      8 × 512: finite losses, no kernel launch, the same figures;
- 21. the ``kernels`` summary line; each kernel's ``launches`` come from
+ 21. the ``kernels`` summary line (seven rows: the six kernels and
+     ``aggregate``'s numerator mode, whose launches are the fleet mesh
+     path's, summed over its ranks); each kernel's ``launches`` come from
      the path named beside it (counts set to 0 just before that path),
      and ``also_on`` lists their launches on the scenario paths and the
      moe, vlm and audio paths; the training paths' launches get a line
@@ -346,6 +369,7 @@ def phase_environment():
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     RUN["card"] = card
+    RUN["cards"] = smi.stdout.strip().splitlines()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "environment", "card": card,
@@ -537,6 +561,49 @@ def phase_aggregate(n_clients, n_layers, feat):
            "library_call": "torch.einsum('nl,nlf->lf', ww, c) "
                            "(the numerator only)"}
     emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
+    return row
+
+
+def phase_aggregate_numerator(n_clients, n_layers, feat):
+    """The ``aggregate`` kernel's numerator mode (``sum_n ww c`` in fp32),
+    which each rank of a fleet mesh runs on its own clients' rows, against
+    its plain version; timed at a rank's share of the main path's fleet
+    (``n_clients``), where ``torch.einsum`` computes the same function."""
+    import torch
+    from repro_torch.kernels.layer_aggregate import ops as O, ref as R
+    from repro_torch.roofline import analysis as RF
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    checks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for N, Lk, F in ((n_clients, n_layers, feat), (5, 3, 1003),
+                         (0, 3, 1003)):
+            c = torch.randn((N, Lk, F), generator=gen, device=dev).to(dtype)
+            ww = torch.rand((N, Lk), generator=gen, device=dev)
+            key = f"{(N, Lk, F)}/{str(dtype)[6:]}"
+            checks[key] = _check(f"aggregate_numerator {key}",
+                                 O.aggregate_numerator(c, ww),
+                                 R.numerator(c, ww), 1e-5, 1e-6)
+            del c
+    torch.cuda.synchronize()
+    N, Lk, F = n_clients, n_layers, feat
+    c = torch.randn((N, Lk, F), generator=gen, device=dev)
+    ww = torch.rand((N, Lk), generator=gen, device=dev)
+    ms = time_ms(lambda: O.aggregate_numerator(c, ww))
+    plain_ms = time_ms(lambda: R.numerator(c, ww))
+    library_ms = time_ms(lambda: torch.einsum("nl,nlf->lf", ww, c))
+    bound_ms, bound_by = bound(RF.aggregate_numerator_work(N, Lk, F))
+    row = {"name": "aggregate_numerator", "route": "cuda",
+           "source": "src/repro_torch/csrc/layer_aggregate.cu",
+           "replaces": "src/repro/kernels/layer_aggregate/kernel.py:34",
+           "shape": [N, Lk, F], "dtype": "float32",
+           "max_abs_err": checks[f"{(N, Lk, F)}/float32"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library_call": "torch.einsum('nl,nlf->lf', ww, c)"}
+    emit({"phase": "kernel", **row, "kernel_ms": ms, "checks": checks})
+    del c
+    torch.cuda.empty_cache()
     return row
 
 
@@ -953,7 +1020,9 @@ def _wrappers():
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.tpgf_fusion.ops import (fuse_leaf, sumsq_leaf,
                                                      tier_sum_leaf)
+    from repro_torch.kernels.layer_aggregate.ops import aggregate_numerator
     return {"fuse": fuse_leaf, "aggregate": aggregate_leaf,
+            "aggregate_numerator": aggregate_numerator,
             "tier_sum": tier_sum_leaf, "sumsq": sumsq_leaf,
             "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
@@ -1223,6 +1292,237 @@ def phase_sanitize_path():
     del checked
     gc.collect()
     torch.cuda.empty_cache()
+
+
+FLEET_RANKS = 2
+FLEET_TIMEOUT_S = 120       # each rank's process-group timeout
+
+
+def _timed_rounds(eng, before=None, after=None):
+    """``ROUNDS`` rounds: each one's record and wall, with ``before()``
+    and ``after()`` (when given) around each, ``after``'s dict merged."""
+    import torch
+    out = []
+    for _ in range(ROUNDS):
+        if before:
+            before()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = eng.run_round()
+        torch.cuda.synchronize()
+        rec = {"loss": rec["loss"], "wall_s": time.perf_counter() - t0}
+        if not math.isfinite(rec["loss"]):
+            die(f"fleet_mesh_path: a round's loss is {rec['loss']}")
+        out.append({**rec, **(after() if after else {})})
+    return out
+
+
+def _fleet_state(eng):
+    """(params, every client's heads) on the host."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.tree import tree_flatten_with_path
+    heads = SH.fleet_gather(eng.state.local_heads, eng.state.n_clients,
+                            eng.mesh)
+    return ({p: x.detach().cpu() for p, x in
+             tree_flatten_with_path(eng.state.params)},
+            {p: x.detach().cpu() for p, x in tree_flatten_with_path(heads)})
+
+
+def _fleet_rank(rank, world, backend, workdir):
+    """One rank of a fleet mesh of ``world`` ranks (this script started
+    again with ``--fleet-rank <r> <world> <backend> <workdir>``): gloo
+    ranks share card 0, an NCCL rank takes card ``r``. Two kernel-on
+    rounds of the main path's fleet; its figures to
+    ``<workdir>/rank<r>.json``, rank 0's state to ``<workdir>/state.pt``.
+    It prints nothing."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"file://{workdir}/store",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=FLEET_TIMEOUT_S))
+    try:
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch import sharding as SH
+        from repro_torch.launch.mesh import make_fleet_mesh
+        mesh = make_fleet_mesh(world, device="cuda", backend=backend)
+        eng = _engine(get_config("vit16_cifar").replace(use_pallas=True),
+                      mesh=mesh)
+        SH.time_collectives(True)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+
+        def after():
+            stats = SH.collective_stats(reset=True)
+            return {"allreduced_bytes": stats["bytes"],
+                    "collectives": stats["calls"],
+                    "collective_s": stats["seconds"],
+                    "replicated_drift": SH.replicated_drift(
+                        (eng.state.params, eng.state.opt_state), mesh)}
+
+        recs = _timed_rounds(eng, lambda: SH.collective_stats(reset=True),
+                             after)
+        launches = _counts()
+        lo, hi = eng.state.rows
+        out = {"rank": rank, "device": str(torch.cuda.current_device()),
+               "clients": list(range(lo, hi)),
+               "heads_rows": int(next(iter(
+                   eng.state.local_heads.values())).shape[0]),
+               "rounds": recs, "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        params, heads = _fleet_state(eng)
+        if rank == 0:
+            torch.save({"params": params, "heads": heads},
+                       os.path.join(workdir, "state.pt"))
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _fleet_meshless(cfg):
+    """The meshless reference of the fleet paths: (rounds, launches,
+    params, heads)."""
+    import torch
+    _zero_counts()
+    eng = _engine(cfg)
+    ref = _timed_rounds(eng)
+    launches = _counts()
+    params, heads = _fleet_state(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, launches, params, heads
+
+
+def _fleet_ranks(world, backend, meshless):
+    """``world`` ranks on ``backend``, each this script in a process of
+    its own, every one waited for, held to the ``meshless`` run (module
+    docstring, 4a); returns their launches summed over the ranks."""
+    import tempfile
+    import torch
+    ref, ref_launches, ref_params, ref_heads = meshless
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        errs = [os.path.join(workdir, f"rank{r}.err") for r in range(world)]
+        procs = []
+        try:
+            for r in range(world):
+                with open(errs[r], "w") as err:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--fleet-rank", str(r), str(world), backend,
+                         workdir], cwd=ROOT,
+                        stdout=subprocess.DEVNULL, stderr=err))
+            for proc in procs:
+                proc.wait(timeout=3 * FLEET_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        failed = [(r, proc.returncode) for r, proc in enumerate(procs)
+                  if proc.returncode != 0]
+        if failed:
+            tails = {r: open(errs[r]).read()[-2000:] for r, _ in failed}
+            die(f"fleet_mesh_path: ranks exited {failed}: {tails}")
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        state = torch.load(os.path.join(workdir, "state.pt"))
+    dloss = max(abs(a["loss"] - b["loss"]) for rk in ranks
+                for a, b in zip(rk["rounds"], ref))
+    dparam = max(float((state["params"][p] - x).abs().max())
+                 for p, x in ref_params.items())
+    dhead = max(float((state["heads"][p] - x).abs().max())
+                for p, x in ref_heads.items())
+    fuse_sum = sum(rk["launches"]["fuse"] for rk in ranks)
+    cards = RUN.get("cards", [])[:world] if backend == "nccl" else \
+        [RUN.get("card")]
+    for rk in ranks:
+        emit({"phase": "fleet_mesh_rank", "ranks": world,
+              "backend": backend, "card": RUN.get("card"), **rk})
+    line = {"phase": "fleet_mesh_path", "ranks": world,
+            "backend": backend, "max_loss_diff": dloss,
+            "max_param_diff": dparam, "max_head_diff": dhead,
+            "fuse_launches": [rk["launches"]["fuse"] for rk in ranks],
+            "meshless_fuse_launches": ref_launches["fuse"],
+            "aggregate_numerator_launches": [
+                rk["launches"]["aggregate_numerator"] for rk in ranks],
+            "meshless_aggregate_launches": ref_launches["aggregate"],
+            "meshless_rounds": ref, "spawn_s": spawn_s, "cards": cards}
+    emit(line)
+    drift = max(r["replicated_drift"] for rk in ranks for r in rk["rounds"])
+    if dloss > 1e-4 or dparam > 1e-4 or dhead > 1e-4 or drift != 0.0:
+        die(f"fleet_mesh_path: {world} ranks disagree with the meshless "
+            f"run (loss {dloss}, params {dparam}, heads {dhead}) or with "
+            f"each other (replicated drift {drift})")
+    if fuse_sum != ref_launches["fuse"]:
+        die(f"fleet_mesh_path: fuse launched {fuse_sum} times over the "
+            f"ranks, the meshless run {ref_launches['fuse']}")
+    for rk in ranks:
+        n = rk["launches"]
+        if n["fuse"] <= 0 or n["aggregate"] != 0 \
+                or n["aggregate_numerator"] != ref_launches["aggregate"]:
+            die(f"fleet_mesh_path: rank {rk['rank']} launched {n}")
+    return {name: sum(rk["launches"][name] for rk in ranks)
+            for name in ranks[0]["launches"]}
+
+
+def phase_fleet_mesh_path():
+    """The main path's fleet on a fleet mesh (module docstring, 4a)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_fleet_mesh
+    cfg = get_config("vit16_cifar").replace(use_pallas=True)
+    meshless = _fleet_meshless(cfg)
+    ref, ref_launches, ref_params, ref_heads = meshless
+
+    # one NCCL rank, in this process: the meshless code path exactly
+    mesh = make_fleet_mesh(1)
+    _zero_counts()
+    eng = _engine(cfg, mesh=mesh)
+    one = _timed_rounds(eng)
+    one_launches = _counts()
+    params, heads = _fleet_state(eng)
+    same = (all(a["loss"] == b["loss"] for a, b in zip(one, ref))
+            and all(torch.equal(params[p], ref_params[p]) for p in params)
+            and all(torch.equal(heads[p], ref_heads[p]) for p in heads))
+    emit({"phase": "fleet_mesh_path", "ranks": 1, "backend":
+          dist.get_backend(), "fleet_shards": eng.fleet_shards,
+          "rounds": one, "meshless_rounds": ref, "bit_for_bit": same,
+          "launches": one_launches, "meshless_launches": ref_launches,
+          "card": RUN.get("card")})
+    if not same or one_launches != ref_launches:
+        die("fleet_mesh_path: a one-rank mesh is not the meshless run")
+    if ref_launches["fuse"] <= 0 or ref_launches["aggregate"] <= 0:
+        die(f"fleet_mesh_path: fuse and aggregate must launch "
+            f"({ref_launches})")
+    del eng
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # two gloo ranks sharing the card (NCCL refuses two ranks on one)
+    return _fleet_ranks(FLEET_RANKS, "gloo", meshless)
+
+
+def phase_fleet_nccl():
+    """``--fleet-nccl``: the main path's fleet on one NCCL rank per card
+    of the machine (module docstring, 4a), held to the meshless run on
+    card 0 as the two gloo ranks are."""
+    import torch
+    from repro_torch.configs.base import get_config
+    world = torch.cuda.device_count()
+    if world < 2:
+        die(f"--fleet-nccl needs two cards or more, found {world}")
+    cfg = get_config("vit16_cifar").replace(use_pallas=True)
+    return _fleet_ranks(world, "nccl", _fleet_meshless(cfg))
 
 
 def phase_clip_path(cfg, params, d):
@@ -2451,6 +2751,9 @@ def kernel_shapes():
     return {"fuse": (d_max, cfg.d_model, cfg.d_ff),
             "fuse_bf16": _largest_client_leaf(ssm),
             "aggregate": (8, cfg.n_layers, cfg.d_model * cfg.d_ff),
+            # one rank's share of the 8 clients on the fleet mesh path
+            "aggregate_numerator": (8 // FLEET_RANKS, cfg.n_layers,
+                                    cfg.d_model * cfg.d_ff),
             "tier_sum": (cfg.n_layers - d_mix, cfg.d_model, cfg.d_ff),
             "sumsq": (d_max, cfg.d_model, cfg.d_ff),
             "flash": attention(lm, SERVE_BATCH, SERVE_PROMPT),
@@ -2474,6 +2777,20 @@ def main() -> None:
         import torch  # noqa: F401
     except ImportError:
         die("torch is not installed")
+    if "--fleet-rank" in sys.argv[1:]:
+        i = sys.argv.index("--fleet-rank")
+        _fleet_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]),
+                    sys.argv[i + 3], sys.argv[i + 4])
+        return
+    if "--fleet-nccl" in sys.argv[1:]:
+        phase_environment()
+        phase_build()
+        launches = timed_phase("fleet_nccl_path", phase_fleet_nccl)
+        emit({"fleet_nccl_path_launches": launches})
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return
     if "--ncu-target" in sys.argv[1:]:
         from repro_torch.configs.base import get_config
         lm, ssm = get_config(SERVE_ARCH), get_config(SSM_ARCH)
@@ -2494,6 +2811,7 @@ def main() -> None:
     d_max = shapes["fuse"][0]
     rows = [phase_fuse(shapes["fuse"], shapes["fuse_bf16"]),
             phase_aggregate(*shapes["aggregate"]),
+            phase_aggregate_numerator(*shapes["aggregate_numerator"]),
             phase_tier_sum(shapes["tier_sum"]),
             phase_sumsq(shapes["sumsq"]),
             phase_flash(*(shapes[k] for k in (
@@ -2510,6 +2828,8 @@ def main() -> None:
     launches["clip_path"] = phase_clip_path(cfg, eng.state.params, d_max)
     del eng
     torch.cuda.empty_cache()
+    launches["fleet_mesh_path"] = timed_phase("fleet_mesh_path",
+                                              phase_fleet_mesh_path)
     timed_phase("sanitize_path", phase_sanitize_path)
     launches["width_path"] = phase_path(
         "width_path", ("fuse", "aggregate", "tier_sum"),
@@ -2581,6 +2901,7 @@ def main() -> None:
     train_launches["dense_train_path"] = phase_dense_train_path(SERVE_ARCH)
     # each kernel's launches come from the path that carries it
     carried_by = {"fuse": "main_path", "aggregate": "main_path",
+                  "aggregate_numerator": "fleet_mesh_path",
                   "tier_sum": "width_path", "sumsq": "clip_path",
                   "flash_attention": "serve_path",
                   "ssd_scan": "ssm_serve_path"}

@@ -2,9 +2,19 @@
 
 The counterpart of the JAX package's ``analysis/fleetlint.py``: the same
 ``Finding``, suppression and scope pragmas, ``lint_paths``, ``main`` and
-exit codes (0 clean, 1 findings), over the port's sources. Two of the
+exit codes (0 clean, 1 findings), over the port's sources. Three of the
 reference's rules apply to the port as written:
 
+  FL003  the fleet axis's collectives: every ``torch.distributed``
+         collective of the port runs in ``launch/sharding.py``'s helpers,
+         uses only ``all_reduce`` and ``broadcast`` (the two that gloo runs
+         on CUDA tensors), and names its group through
+         ``launch.sharding.fleet_group``. A collective anywhere else is a
+         finding; under ``federated/`` (or in a ``scope=fleet`` file) the
+         finding also says when its ``group=`` is absent (the WORLD group)
+         or does not come from ``fleet_group``. The counterpart of the
+         reference's FL003, which holds its ``psum`` axis names to
+         ``fleet_axes``.
   FL004  determinism on the round path: no ``time.time``-family calls, no
          global ``np.random.*`` state, no unseeded ``default_rng()``, and
          none of torch's global stream: ``torch.rand*`` / ``randn*`` /
@@ -18,16 +28,16 @@ reference's rules apply to the port as written:
          probe the engine dispatches on, and the sanitizer's
          ``slot_outputs``.
 
-The reference's FL001 (no host sync inside compiled kernel code), FL002
-(no raw reduction over padded bucket slots) and FL003 (psum axis names
-and kernel pspec coverage) have no counterpart here: the port states no
-host-sync contract, has no padded slots (it slices each client's tree at
-its depth), and does not shard the fleet yet.
+The reference's FL001 (no host sync inside compiled kernel code) and
+FL002 (no raw reduction over padded bucket slots) have no counterpart
+here: the port states no host-sync contract and has no padded slots (it
+slices each client's tree at its depth); nor has FL003's kernel pspec
+coverage, since the port has no ``shard_map`` specs.
 
 Suppression: append ``# fleetlint: disable=FL004`` (comma-separate for
 several codes) to the offending line, followed by a one-line
 justification. A ``# fleetlint: scope=fleet`` comment anywhere in a file
-marks it as round-path scope for FL004 (fixture corpora).
+marks it as round-path scope for FL003 and FL004 (fixture corpora).
 
 Stdlib only (``ast`` + ``re``): ``python tools/fleetlint_torch.py``.
 """
@@ -43,6 +53,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 # --------------------------------------------------------------------- rules
 
 RULES: Dict[str, str] = {
+    "FL003": "fleet collectives only in launch.sharding, on fleet_group",
     "FL004": "nondeterminism ban on the round path",
     "FL005": "Strategy protocol hook signatures",
 }
@@ -64,6 +75,17 @@ _NP_RANDOM_OK = {"default_rng", "Generator", "SeedSequence", "PCG64",
 _TORCH_SAMPLERS = {"normal"}
 _INPLACE_SAMPLERS = {"uniform_", "normal_", "bernoulli_"}
 _TORCH_SEEDING = {"manual_seed", "manual_seed_all", "seed", "seed_all"}
+
+# torch.distributed's collectives (FL003): the ones launch/sharding.py may
+# call, and every other
+_FLEET_COLLECTIVES = {"all_reduce", "broadcast"}
+_COLLECTIVES = _FLEET_COLLECTIVES | {
+    "all_gather", "all_gather_into_tensor", "all_gather_object",
+    "all_to_all", "all_to_all_single", "barrier", "broadcast_object_list",
+    "gather", "gather_object", "irecv", "isend", "monitored_barrier",
+    "recv", "reduce", "reduce_scatter", "reduce_scatter_tensor",
+    "scatter", "scatter_object_list", "send"}
+_SHARDING_MODULE = "launch/sharding.py"
 
 # Strategy protocol hooks: name -> (required positional names after self,
 # allowed optional extras — every extra must carry a default)
@@ -205,6 +227,92 @@ def _check_fl004(mod: _Module, add) -> None:
                 "checkpointed stream")
 
 
+# ------------------------------------------------------------------ FL003
+
+def _dist_names(tree: ast.AST) -> Tuple[Set[str], Dict[str, str]]:
+    """(names bound to ``torch.distributed``, {local name: collective})
+    from the module's imports."""
+    modules: Set[str] = set()
+    direct: Dict[str, str] = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name == "torch.distributed":
+                    modules.add(a.asname or a.name)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            for a in node.names:
+                if node.module == "torch" and a.name == "distributed":
+                    modules.add(a.asname or a.name)
+                elif node.module == "torch.distributed" \
+                        and a.name in _COLLECTIVES:
+                    direct[a.asname or a.name] = a.name
+    return modules, direct
+
+
+def _fleet_group_names(tree: ast.AST) -> Set[str]:
+    """Names assigned from a ``fleet_group(...)`` call anywhere in the
+    module."""
+    out: Set[str] = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and _is_fleet_group(node.value):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return out
+
+
+def _is_fleet_group(node: ast.AST) -> bool:
+    return isinstance(node, ast.Call) and \
+        (_dotted(node.func) or "").split(".")[-1] == "fleet_group"
+
+
+def _check_fl003(mod: _Module, add) -> None:
+    modules, direct = _dist_names(mod.tree)
+    if not modules and not direct:
+        return
+    in_helpers = Path(mod.rel).as_posix().endswith(_SHARDING_MODULE)
+    groups = _fleet_group_names(mod.tree)
+    for node in ast.walk(mod.tree):
+        if not isinstance(node, ast.Call):
+            continue
+        d = _dotted(node.func) or ""
+        head, _, last = d.rpartition(".")
+        if head in modules or d.startswith("torch.distributed."):
+            op = last
+        elif d in direct:
+            op = direct[d]
+        else:
+            continue
+        if op not in _COLLECTIVES:
+            continue
+        group = next((k.value for k in node.keywords if k.arg == "group"),
+                     None)
+        ok_group = group is not None and (
+            _is_fleet_group(group)
+            or (isinstance(group, ast.Name) and group.id in groups))
+        why = ("its group= is absent, so it runs on the WORLD group"
+               if group is None else
+               "its group= does not come from launch.sharding.fleet_group")
+        if not in_helpers:
+            add("FL003", node,
+                f"torch.distributed.{op}() outside launch/sharding.py's "
+                "helpers" + (f"; {why}" if mod.fleet_scope and not ok_group
+                             else ""),
+                "call the fleet helper that does this (launch.sharding."
+                "fleet_sum / fleet_any / fleet_gather / fleet_broadcast / "
+                "fleet_barrier), or add one there")
+        elif op not in _FLEET_COLLECTIVES:
+            add("FL003", node,
+                f"torch.distributed.{op}() in the fleet helpers: they use "
+                "only all_reduce and broadcast, the collectives gloo runs "
+                "on CUDA tensors",
+                "express it as an all_reduce (a gather is an all_reduce of "
+                "a zeroed buffer each rank writes its rows into) or a "
+                "broadcast")
+        elif not ok_group:
+            add("FL003", node,
+                f"torch.distributed.{op}() in the fleet helpers: {why}",
+                "pass group=fleet_group(mesh)")
+
+
 # ------------------------------------------------------------------ FL005
 
 def _strategy_class_names(mods: Sequence[_Module]) -> Set[str]:
@@ -299,6 +407,7 @@ def _lint_module(mod: _Module, strategy_classes: Set[str],
                                 getattr(node, "col_offset", 0) + 1,
                                 message, fixit))
 
+    _check_fl003(mod, add)
     _check_fl004(mod, add)
     _check_fl005(mod, strategy_classes, add)
     return findings

@@ -86,8 +86,12 @@ def install_weights(target, params: Dict[str, Any],
     """Install numpy ``params`` and stacked ``local_heads`` (the reference
     ``TrainState``'s trees as numpy arrays) into a port ``Engine`` or
     ``TrainState``, on its device and in its dtypes. The trees must have
-    exactly the port's keys and shapes."""
+    exactly the port's keys and shapes. On a fleet mesh each rank calls
+    it with every client's heads and keeps the rows it owns."""
     state = getattr(target, "state", target)
+    lo, hi = state.rows
+    if (lo, hi) != (0, state.n_clients):
+        local_heads = tree_map(lambda x: np.asarray(x)[lo:hi], local_heads)
     _check_like("params", state.params, params)
     _check_like("local_heads", state.local_heads, local_heads)
     state.params = tree_map(

@@ -6,6 +6,12 @@
 //
 // ww already folds the presence mask (ww[n, l] = w_n * (l < d_n)).
 //
+// The numerator mode (repro_aggregate_numerator) stops before the division
+// and writes num[l, f] = sum_n ww[n, l] * c[n, l, f] in fp32: on a fleet
+// mesh each rank sums its own clients' rows, the ranks all-reduce the
+// numerators, and the division runs once after. It reads c once and writes
+// 4·L·F bytes, the same bound as the full mode less the read of s.
+//
 // Replaces the TPU kernel src/repro/kernels/layer_aggregate/kernel.py::
 // aggregate_3d, which swaps c to [L, N, F], pads F to 512-wide blocks and
 // reduces one layer's [N, 512] client slab per grid step in VMEM. Here c
@@ -48,11 +54,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+// kNormalise: out (T) = (num + lam·s) / (den + lam); otherwise out (float)
+// = num, and s, lam and the denominator are unused.
+template <typename T, bool kNormalise, typename Out>
 __global__ void aggregate_kernel(const T* __restrict__ c,
                                  const float* __restrict__ ww,
-                                 const T* __restrict__ s, T* __restrict__ out,
-                                 float lam, int N, int L, int64_t F) {
+                                 const T* __restrict__ s,
+                                 Out* __restrict__ out, float lam, int N,
+                                 int L, int64_t F) {
   extern __shared__ float ww_col[];  // ww[:, l], N floats
   __shared__ float den;
   const int l = blockIdx.y;
@@ -60,7 +69,7 @@ __global__ void aggregate_kernel(const T* __restrict__ c,
     ww_col[n] = ww[(int64_t)n * L + l];
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (kNormalise && threadIdx.x == 0) {
     float acc = 0.0f;
     for (int n = 0; n < N; ++n) acc += ww_col[n];
     den = acc;
@@ -74,18 +83,22 @@ __global__ void aggregate_kernel(const T* __restrict__ c,
   for (int n = 0; n < N; ++n) {
     acc = fmaf(ww_col[n], to_f32(c[(int64_t)n * n_stride + lf]), acc);
   }
-  out[lf] = from_f32<T>((acc + lam * to_f32(s[lf])) / (den + lam));
+  if (kNormalise) {
+    out[lf] = from_f32<Out>((acc + lam * to_f32(s[lf])) / (den + lam));
+  } else {
+    out[lf] = from_f32<Out>(acc);
+  }
 }
 
-template <typename T>
+template <typename T, bool kNormalise, typename Out>
 void launch(const void* c, const void* ww, const void* s, void* out,
             float lam, int N, int L, int64_t F, cudaStream_t stream) {
   const int threads = 256;
   const dim3 grid((unsigned)((F + threads - 1) / threads), (unsigned)L);
   const size_t smem = sizeof(float) * (size_t)N;
-  aggregate_kernel<T><<<grid, threads, smem, stream>>>(
+  aggregate_kernel<T, kNormalise, Out><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(c), static_cast<const float*>(ww),
-      static_cast<const T*>(s), static_cast<T*>(out), lam, N, L, F);
+      static_cast<const T*>(s), static_cast<Out*>(out), lam, N, L, F);
 }
 
 }  // namespace
@@ -96,9 +109,26 @@ extern "C" int repro_aggregate(int dtype, const void* c, const void* ww,
                                int L, int64_t F, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(c, ww, s, out, lam, N, L, F, st);
+    launch<float, true, float>(c, ww, s, out, lam, N, L, F, st);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(c, ww, s, out, lam, N, L, F, st);
+    launch<__nv_bfloat16, true, __nv_bfloat16>(c, ww, s, out, lam, N, L, F,
+                                               st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The numerator mode: out is float32 [L, F] whatever c's dtype.
+extern "C" int repro_aggregate_numerator(int dtype, const void* c,
+                                         const void* ww, void* out, int N,
+                                         int L, int64_t F, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch<float, false, float>(c, ww, nullptr, out, 0.0f, N, L, F, st);
+  } else if (dtype == 1) {
+    launch<__nv_bfloat16, false, float>(c, ww, nullptr, out, 0.0f, N, L, F,
+                                        st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -3,7 +3,8 @@
 Every public constructor of the port (``Engine``, ``models.model.
 init_params`` and ``init_local_head``, ``models.decode.init_cache``,
 ``federated.state.init_train_state``, ``bridge.to_model_params``,
-``bridge.to_torch``) resolves ``device=None`` here, so none of them builds on the CPU
+``bridge.to_torch``, ``launch.mesh.make_fleet_mesh``) resolves
+``device=None`` here, so none of them builds on the CPU
 without being told to.
 """
 from __future__ import annotations

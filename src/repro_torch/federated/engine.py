@@ -54,8 +54,21 @@ With ``sanitize=False`` (the default) an out-of-bounds batch index on the
 card is a device-side assert, which the CUDA context does not survive
 (the reference's JAX gather clamps it).
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP queue
-item: ``mesh=`` (fleet sharding).
+Fleet sharding: ``mesh=repro_torch.launch.mesh.make_fleet_mesh(R)``
+(a 1-D ``("data",)`` ``DeviceMesh`` over R ranks, one process each)
+spreads the fleet over the ranks. Client ``i`` lives on rank
+``launch.sharding.fleet_owner(N, mesh)[i]`` (contiguous blocks): its local
+head, its row of the round's workspace and its ``sfl`` server copy stay
+there, and each rank trains the clients of every cohort that it owns.
+Every rank draws the whole fleet's host streams in the same order, so the
+round's context is the same on every rank and no draw crosses ranks; the
+strategies all-reduce their partial sums (the pooled server gradient, the
+tier masses, Eq. 8's numerators, the FedAvg average, the trained mask
+and losses) through ``launch.sharding``, and the replicated state (the
+params, the server moments, the FedBuff buffer) comes out the same, bit
+for bit, on every rank. A round over R ranks gives the meshless round's
+numbers up to the order of its fp32 sums; a mesh of extent 1 runs the
+meshless code path exactly (``fleet_shards == 1``).
 """
 from __future__ import annotations
 
@@ -76,6 +89,7 @@ from repro_torch.federated.simulator import make_fleet
 from repro_torch.federated.state import TrainState, init_train_state
 from repro_torch.federated.strategies import (RoundContext, Strategy,
                                               get_strategy)
+from repro_torch.launch import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.models.model import local_predict, predict
 from repro_torch.optim import Optimizer, get_optimizer
@@ -107,12 +121,23 @@ class Engine:
             raise ValueError(
                 f"cross_tier={cross_tier!r}: expected 'fused' or 'chained'")
         self.cross_tier = cross_tier
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=): fleet sharding is ROADMAP queue 1, "
-                "\"Fleet sharding and multi-device\"")
         self.sanitize = bool(sanitize)
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(
+                    f"mesh: expected a torch DeviceMesh (repro_torch.launch."
+                    f"mesh.make_fleet_mesh), got {type(mesh).__name__}")
+            if mesh.mesh_dim_names != ("data",):
+                raise ValueError("mesh: expected a 1-D mesh named "
+                                 f"('data',), got {mesh.mesh_dim_names}")
+            if device is None:
+                device = mesh.device_type
+        self.mesh = mesh
         self.device = resolve_device(device)
+        if mesh is not None and self.device.type != mesh.device_type:
+            raise ValueError(f"device {self.device} is not on the mesh's "
+                             f"device type {mesh.device_type!r}")
         self.cfg = cfg
         self.strategy = (get_strategy(strategy)
                          if isinstance(strategy, str) else strategy)
@@ -142,7 +167,9 @@ class Engine:
             n_clients, n_classes=cfg.n_classes or 10,
             image_size=cfg.image_size, alpha=alpha, seed=seed, noise=noise)
         self.state: TrainState = init_train_state(
-            cfg, n_clients, seed=seed, fleet=fleet, device=self.device)
+            cfg, n_clients, seed=seed, fleet=fleet, device=self.device,
+            mesh=mesh)
+        self._owner = SH.fleet_owner(n_clients, mesh)
         self._staleness = np.zeros(n_clients, np.int64)
         self._server_updates = 0    # rounds in which any client had a server
         # shape-check caches of the strategies' opt_state slots, reset by
@@ -164,6 +191,20 @@ class Engine:
     @classmethod
     def builder(cls, cfg: ModelConfig) -> "EngineBuilder":
         return EngineBuilder(cfg)
+
+    @property
+    def fleet_shards(self) -> int:
+        """Number of ranks the fleet splits over (1 without a mesh)."""
+        return SH.fleet_extent(self.mesh)
+
+    def owner_of(self, ids) -> np.ndarray:
+        """The rank that owns each of ``ids`` (0 without a mesh)."""
+        return self._owner[np.asarray(ids, np.int64)]
+
+    def owned(self, ids) -> np.ndarray:
+        """[len(ids)] bool: which of ``ids`` this rank owns (all of them
+        without a mesh)."""
+        return self.owner_of(ids) == SH.fleet_rank(self.mesh)
 
     @property
     def device_data(self):
@@ -331,21 +372,24 @@ class Engine:
     def _local_ensemble_logits(self, batch):
         """Mean of per-client fault-tolerant head logits, each at the
         client's own split depth with its own phi_i; the global head when
-        no client is feasible."""
+        no client is feasible. On a fleet mesh each rank sums the logits
+        of the heads it owns, and one all-reduce sums the ranks'."""
         fleet = self.state.fleet
+        n = int(np.sum(fleet.feasible))
+        if n == 0:
+            return predict(self.cfg, self.state.params, batch)
         acc = None
-        n = 0
-        for i in range(fleet.n_clients):
-            if not fleet.feasible[i]:
-                continue
+        for i in np.where(self.owned(np.arange(fleet.n_clients))
+                          & fleet.feasible)[0]:
             params = {**self.state.params, **self.state.head_for(i)}
             logits = local_predict(self.cfg, params, batch,
                                    int(fleet.depths[i]))
             acc = logits if acc is None else acc + logits
-            n += 1
-        if acc is None:
-            return predict(self.cfg, self.state.params, batch)
-        return acc / n
+        if acc is None:   # this rank owns no feasible client
+            head = self.state.local_heads["local_head"]
+            acc = torch.zeros((len(batch["label"]), head.shape[-1]),
+                              dtype=head.dtype, device=self.device)
+        return SH.fleet_sum([acc], self.mesh)[0] / n
 
     def train(self, n_rounds: int, *, eval_every: int = 5,
               target_accuracy: float = None, verbose: bool = False):
@@ -368,7 +412,8 @@ class Engine:
         bit-identically. Strategy state that lives in
         ``TrainState.opt_state`` (the server moments) rides along. The
         metrics ledger and history are not saved: a restored engine
-        accounts from zero."""
+        accounts from zero. On a fleet mesh every rank calls it; rank 0
+        writes the one file, with every rank's heads."""
         meta = dict(meta or {})
         streams = {"avail": self.avail_model.get_state(),
                    "sample": self._sample_rng.bit_generator.state,
@@ -383,7 +428,9 @@ class Engine:
 
     def restore(self, path: str) -> "Engine":
         """Inverse of :meth:`save`; the engine must have been built with
-        the same (cfg, n_clients, strategy, optimizer) shape."""
+        the same (cfg, n_clients, strategy, optimizer) shape. Any engine
+        restores any checkpoint of that shape, with a fleet mesh of any
+        extent or none: on a mesh each rank keeps its own heads."""
         self.state.restore(path)
         # the adopted opt_state is re-validated by its owners on next use
         self._server_opt_ok = self._fedopt_ok = self._buffer_ok = None
@@ -460,11 +507,13 @@ class EngineBuilder:
     def execution(self, *, device=None, mesh=None, sanitize: bool = False,
                   width_tiers=None,
                   cross_tier: str = "fused") -> "EngineBuilder":
-        """The device to run on (None = the card), the sanitizer mode
-        (``sanitize=True``: the gather guard and the float check on every
-        cohort step), the supernet width ladder (e.g. ``(0.5, 1.0)``) and
-        the cross-tier mode ("fused" or "chained"), plus the reference's
-        fleet mesh, which the port does not run yet (``mesh``)."""
+        """The device to run on (None = the card, or the fleet mesh's
+        device type), the fleet mesh (``mesh``: a
+        ``launch.mesh.make_fleet_mesh`` mesh, the fleet sharded over its
+        ranks), the sanitizer mode (``sanitize=True``: the gather guard and
+        the float check on every cohort step), the supernet width ladder
+        (e.g. ``(0.5, 1.0)``) and the cross-tier mode ("fused" or
+        "chained")."""
         self._kw.update(device=device, mesh=mesh, sanitize=sanitize,
                         width_tiers=width_tiers, cross_tier=cross_tier)
         return self

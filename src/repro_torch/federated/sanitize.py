@@ -35,6 +35,12 @@ reference raises before its strategy reads the kernel's outputs
 (departure (g)). A tripped engine is for diagnosis. The gather guard
 raises before anything is written, and the next round runs.
 
+On a fleet mesh each rank checks the clients it trains, and a trip on
+one rank raises on every rank: after each cohort the ranks all-reduce
+their per-position non-finite flags and their trip flag (one collective
+per cohort, in this mode only), so no rank is left waiting in the next
+collective, and ``slots`` names global cohort positions on every rank.
+
 With ``sanitize=False`` none of this runs: no mode, no sync, no extra op.
 """
 from __future__ import annotations
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.launch import sharding as SH
 from repro_torch.tree import tree_leaves
 
 aten = torch.ops.aten
@@ -175,10 +182,35 @@ def checked_cohort_step(engine, ctx, ws, d: int, ids: Sequence[int]):
     with FloatCheck() as check:
         res = strat.cohort_step(engine, ctx, ws, d, ids)
     msg = check.failure()
+    if engine.fleet_shards > 1:
+        msg, slots = _fleet_verdict(engine, ws, ids, res, msg)
+    elif msg is not None:
+        slots = nonfinite_slots(strat.slot_outputs(engine, ws, ids, res),
+                                len(ids))
     if msg is None:
         return res
-    slots = nonfinite_slots(strat.slot_outputs(engine, ws, ids, res),
-                            len(ids))
     where = f" (cohort slots {list(slots)})" if slots else ""
     raise SlotSanitizerError(
         f"sanitizer tripped in {strat.kernel_name}{where}: {msg}", slots)
+
+
+def _fleet_verdict(engine, ws, ids, res, msg: Optional[str]):
+    """(message, global slots) of a cohort on a fleet mesh: this rank's
+    trip and the cohort positions of its own clients whose outputs are
+    non-finite, OR-ed over the ranks in one all-reduce. The message is
+    None iff no rank tripped."""
+    ids = np.asarray(ids)
+    pos = np.where(engine.owned(ids))[0]     # this rank's cohort positions
+    flags = torch.zeros(len(ids) + 1, dtype=torch.bool)
+    if msg is not None:
+        local = nonfinite_slots(
+            engine.strategy.slot_outputs(engine, ws, ids, res), len(pos))
+        flags[pos[list(local)]] = True
+        flags[-1] = True
+    flags = SH.fleet_any(flags.to(engine.device),
+                         engine.mesh).cpu().numpy()
+    if not flags[-1]:
+        return None, ()
+    if msg is None:
+        msg = "a float check tripped on another rank of the fleet mesh"
+    return msg, tuple(int(j) for j in np.where(flags[:-1])[0])

@@ -31,6 +31,13 @@ server_opt="sgd", server_lr=1.0)`` on a one-depth fleet recovers
 ``unstable`` up to the float round trip ``params + (agg - params)``;
 resume is bit-identical.
 
+On a fleet mesh the round's trained mask and losses come gathered over
+every rank (``base.fleet_outputs``) and each candidate is the sharded
+Eq. 6/8 (``aggregate_weighted(mesh=...)``), whose output every rank
+holds bit for bit; an entry is built only from such reduced values, so
+the buffer and both server states stay replicated and bit-identical on
+every rank.
+
 Departures from the reference: (a) extended: ``_cohort_entry`` passes
 ``cfg.use_pallas`` (and the fleet's widths) to ``aggregate_weighted``, so
 each candidate's split stack runs through the ``aggregate`` kernel.
@@ -118,8 +125,7 @@ class BufferedAsync(UnstableParticipation):
     def aggregate(self, engine, ws):
         state = engine.state
         # the ONE host sync of the round's training outputs
-        host = torch.stack([ws["trained"].float(), ws["losses"]]).cpu().numpy()
-        mask, losses = host[0] > 0.5, host[1]
+        mask, losses = base.fleet_outputs(engine, ws)
         loss = float(np.mean(losses[mask])) if mask.any() else float("nan")
         buf = self._buffer_state(engine)
         new_params = state.params
@@ -153,12 +159,12 @@ class BufferedAsync(UnstableParticipation):
             return None
         globals_with_server = dict(state.params)
         globals_with_server.update(ws["cohort_views"][d])
-        w = discounted_weights(engine, state.fleet.depths, ws["losses"],
-                               stale, self.gamma, cmask)
+        w = discounted_weights(engine, state.fleet.depths,
+                               ws["fleet_losses"], stale, self.gamma, cmask)
         cand = AGG.aggregate_weighted(
             cfg, globals_with_server, ws["client_stack"], state.fleet.depths,
             w, mask=cmask, use_pallas=cfg.use_pallas,
-            widths=state.fleet.widths)
+            widths=state.fleet.widths, mesh=engine.mesh)
         delta = tree_map(lambda c, p: c.float() - p.float(), cand,
                          state.params)
         return delta, float(cmask.sum()), float(stale[cmask].mean())

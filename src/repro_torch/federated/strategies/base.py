@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core import supernet as SN
 from repro_torch.core.fault import ArrivalProcess
+from repro_torch.launch import sharding as SH
 from repro_torch.optim import map_moments
 from repro_torch.tree import (tree_flatten_with_path, tree_get, tree_leaves,
                               tree_map, tree_structure)
@@ -117,18 +118,19 @@ class Strategy:
         globals and delegate the weighting to
         ``agg_fn(globals, stacked, depths, losses, mask)``. This is the ONE
         host sync of the round's training outputs: the trained mask and the
-        per-client losses come back together. Returns (new params, mean
-        loss over the clients that trained)."""
+        per-client losses come back together, the whole fleet's on every
+        rank of a fleet mesh (``fleet_outputs``), so the Eq. 6 weights are
+        the same everywhere; ``stacked`` holds the rank's own rows. Returns
+        (new params, mean loss over the clients that trained)."""
         state = engine.state
-        host = torch.stack([ws["trained"].float(), ws["losses"]]).cpu().numpy()
-        mask, losses = host[0] > 0.5, host[1]
+        mask, losses = fleet_outputs(engine, ws)
         if not mask.any():
             return state.params, float("nan")
         ws["participated"] = np.where(mask)[0]
         globals_with_server = dict(state.params)
         globals_with_server.update(server_view)
         new_params = agg_fn(globals_with_server, ws["client_stack"],
-                            state.fleet.depths, ws["losses"], mask)
+                            state.fleet.depths, ws["fleet_losses"], mask)
         return new_params, float(np.mean(losses[mask]))
 
     def comm_cost(self, engine, d: int, available: bool,
@@ -145,9 +147,12 @@ class Strategy:
         """The cohort's per-client outputs, every leaf leading with the
         cohort's axis (position ``j`` holds client ``ids[j]``): its losses,
         its rows of the workspace's client trees and of the local heads.
-        The sanitizer reads them after a trip to name the positions whose
-        outputs are non-finite."""
-        idx = torch.as_tensor(np.asarray(ids, np.int64),
+        On a fleet mesh, the clients of ``ids`` that this rank owns, in
+        cohort order (``engine.owned(ids)`` maps them to cohort
+        positions). The sanitizer reads them after a trip to name the
+        positions whose outputs are non-finite."""
+        ids = np.asarray(ids, np.int64)
+        idx = torch.as_tensor(ids[engine.owned(ids)] - engine.state.rows[0],
                               device=engine.device)
         rows = lambda tree: tree_map(lambda x: x[idx], tree)
         out = {"local": rows(engine.state.local_heads)}
@@ -166,17 +171,33 @@ class Strategy:
 # ``core.aggregation`` stacked format), ``losses`` [N] f32 and ``trained``
 # [N] bool. Cohorts write their rows in place (the port updates these
 # buffers in place to hold one copy of the fleet's client trees);
-# aggregation reads them with the validity mask.
+# aggregation reads them with the validity mask. On a fleet mesh each
+# rank's buffers hold the rows of the clients it owns, ``ws["rows"]``
+# (absent: every client's).
 
 def fleet_workspace(engine) -> Dict[str, Any]:
-    n = engine.state.n_clients
+    lo, hi = engine.state.rows
+    n = hi - lo
     dev = engine.device
     template = SN.split_params(engine.cfg, engine.state.params, None)[0]
     return {"client_stack": tree_map(
                 lambda x: torch.zeros((n,) + tuple(x.shape), dtype=x.dtype,
                                       device=dev), template),
             "losses": torch.zeros(n, dtype=torch.float32, device=dev),
-            "trained": torch.zeros(n, dtype=torch.bool, device=dev)}
+            "trained": torch.zeros(n, dtype=torch.bool, device=dev),
+            "rows": (lo, hi)}
+
+
+def fleet_outputs(engine, ws: Dict[str, Any]):
+    """The round's trained mask and losses over the whole fleet, on the
+    host (``[N]`` bool and fp32): ONE device sync; on a fleet mesh after
+    one all-reduce that gathers every rank's rows bit for bit. The
+    device vector of losses lands in ``ws["fleet_losses"]``."""
+    out = SH.fleet_gather({"trained": ws["trained"], "losses": ws["losses"]},
+                          engine.state.n_clients, engine.mesh)
+    ws["fleet_losses"] = out["losses"]
+    host = torch.stack([out["trained"].float(), out["losses"]]).cpu().numpy()
+    return host[0] > 0.5, host[1]
 
 
 @torch.no_grad()
@@ -191,7 +212,7 @@ def scatter_client_rows(cfg, ws: Dict[str, Any], ids, client_trees,
     plan = SN.width_plan(cfg, width) if width < 1.0 else {}
     buf = ws["client_stack"]
     for i, tree in zip(ids, client_trees):
-        i = int(i)
+        i = int(i) - ws.get("rows", (0,))[0]
         for k, v in tree.items():
             if k == sname:
                 for path, x in tree_flatten_with_path(v):
@@ -216,13 +237,14 @@ def scatter_heads(state, ids, heads) -> None:
     """Write each client's trained phi_i into its row of the stacked
     ``state.local_heads`` (in place)."""
     for i, head in zip(ids, heads):
-        tree_map(lambda buf, h: buf[int(i)].copy_(h), state.local_heads,
-                 head)
+        r = state.row(i)
+        tree_map(lambda buf, h: buf[r].copy_(h), state.local_heads, head)
 
 
 def record_cohort(ws: Dict[str, Any], ids, losses) -> None:
     """Mark a cohort's rows trained and write their losses (device only)."""
-    idx = torch.as_tensor(np.asarray(ids, np.int64),
+    lo = ws.get("rows", (0,))[0]
+    idx = torch.as_tensor(np.asarray(ids, np.int64) - lo,
                           device=ws["losses"].device)
     ws["losses"][idx] = losses.to(torch.float32)
     ws["trained"][idx] = True
@@ -331,22 +353,33 @@ def broadcast_server_opt(state, n: int):
             for _ in range(n)]
 
 
-def mean_server_opt(states, template):
-    """Collapse per-client server states back to the shared one: each
-    moment entry is the fp32 mean over the clients, cast back to its
-    dtype (the moment-space analogue of SplitFed's FedAvg over server
-    copies); bookkeeping entries, equal in every copy, come from the
-    first."""
-    def mean(*xs):
-        return (torch.stack([x.float() for x in xs]).sum(0)
-                / float(len(xs))).to(xs[0].dtype)
-    first = states[0]
-    if not isinstance(first, dict):
-        return first
+def mean_server_opt(states, start, template, n: int, src: int, mesh):
+    """Collapse per-client server states back to the shared one (the
+    moment-space analogue of SplitFed's FedAvg over server copies): each
+    moment entry is the fp32 mean over the copies, cast back to its
+    dtype; bookkeeping entries, equal in every copy, come from one copy.
+    ``states`` are this rank's copies (on a fleet mesh maybe none),
+    ``start`` the state they all started from, ``n`` the copies on every
+    rank together and ``src`` a rank whose copies carry the live
+    bookkeeping (that of a client that reached the server). Each moment's
+    fp32 sum over the rank's copies is all-reduced, then divided by
+    ``n``; the bookkeeping is broadcast from ``src``."""
+    if not isinstance(start, dict):
+        return start
     pdef = tree_structure(template)
-    return {k: (tree_map(mean, *[s[k] for s in states])
-                if tree_structure(v) == pdef else v)
-            for k, v in first.items()}
+    moments = [k for k, v in start.items() if tree_structure(v) == pdef]
+    sums = {k: (tree_map(lambda *xs: torch.stack([x.float() for x in xs])
+                         .sum(0), *[s[k] for s in states]) if states else
+                tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                         start[k]))
+            for k in moments}
+    sums = SH.fleet_sum_tree(sums, mesh)
+    book = SH.fleet_broadcast(
+        {k: (states[0] if states else start)[k].clone()
+         for k in start if k not in moments}, src, mesh)
+    return {k: (tree_map(lambda t, x: (t / float(n)).to(x.dtype), sums[k],
+                         start[k]) if k in sums else book[k])
+            for k in start}
 
 
 # ----------------------------------------------------------------- registry

@@ -14,6 +14,11 @@ A cohort's local steps are a plain loop over steps and clients; each
 client trains its own copy of the full model with an optimizer state made
 fresh each round. The average is a plain torch reduction: the reference
 has no kernel for it.
+
+On a fleet mesh each rank trains the clients of the cohort that it owns;
+the size-weighted average is each rank's ``einsum`` over its own models,
+all-reduced once with the cohort's loss vector (whose mean is the
+round's loss), and the server fold runs replicated.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.federated import metrics as MET
 from repro_torch.federated.strategies import base
 from repro_torch.federated.strategies.base import (CohortResult, RoundContext,
                                                    Strategy, register_strategy)
+from repro_torch.launch import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.optim import (Optimizer, apply_updates, fedadam, fedyogi,
                                sgd_momentum)
@@ -83,48 +89,63 @@ class FedAvg(Strategy):
     def cohort_step(self, engine, ctx, ws, d, ids) -> CohortResult:
         cfg, state, opt = engine.cfg, engine.state, engine.optimizer
         dev = engine.device
-        n = len(ids)
         idx = torch.as_tensor(
             ctx.sample_indices(ids, engine.local_steps,
                                engine.batch_size).astype(np.int64),
             device=dev)
         dd = engine.device_data
+        mine = np.where(engine.owned(ids))[0]   # the cohort positions here
+        m = len(mine)
         # the optimizers and apply_updates build new tensors, so every
         # copy may start as a reference to the global tree
-        models = [state.params] * n
-        states = [opt.init(state.params) for _ in range(n)]
-        losses = [None] * n
+        models = [state.params] * m
+        states = [opt.init(state.params) for _ in range(m)]
+        losses = [None] * m
         for t in range(engine.local_steps):
-            for j in range(n):
-                rows = idx[t, j]
+            for j, i in enumerate(mine):
+                rows = idx[t, i]
                 batch = {"images": dd.images[rows], "label": dd.labels[rows]}
                 losses[j], g = _full_grads(cfg, models[j], batch)
                 upd, states[j] = opt.update(g, states[j], models[j])
                 models[j] = apply_updates(models[j], upd)
-        ws["ids"], ws["models"] = np.asarray(ids), models
-        ws["losses"] = torch.stack(losses).to(torch.float32)
+        ws["ids"], ws["models"], ws["mine"] = np.asarray(ids), models, mine
+        ws["losses"] = (torch.stack(losses).to(torch.float32) if m else
+                        torch.zeros(0, dtype=torch.float32, device=dev))
         nparams = M.param_count(state.params)
         return CohortResult(nparams, 0, losses=ws["losses"])
 
     def slot_outputs(self, engine, ws, ids, res):
         # each client's trained full model, stacked along the cohort axis
+        if not ws["models"]:
+            return {"losses": res.losses}
         return {"losses": res.losses,
                 "model": tree_map(lambda *xs: torch.stack(xs),
                                   *ws["models"])}
 
     def aggregate(self, engine, ws):
-        ids, models = ws["ids"], ws["models"]
+        """The size-weighted average: this rank's fp32 ``einsum`` over its
+        own models and its rows of the cohort's loss vector, summed over
+        the ranks of a fleet mesh in one all-reduce."""
+        ids, mine = ws["ids"], ws["mine"]
         if ids is None:   # nobody arrived this round
             return engine.state.params, float("nan")
+        params, dev = engine.state.params, engine.device
         sizes = np.array([len(engine.data["clients"][i].labels)
                           for i in ids], np.float32)
-        w = torch.as_tensor(sizes / sizes.sum(), device=engine.device)
-        avg = tree_map(
-            lambda *xs: torch.einsum(
-                "n,n...->...", w,
-                torch.stack([x.float() for x in xs])).to(xs[0].dtype),
-            *models)
-        loss = float(ws["losses"].mean())
+        w = torch.as_tensor(sizes / sizes.sum(), device=dev)
+        pos = torch.as_tensor(mine, device=dev)
+        if len(mine):
+            part = tree_map(lambda *xs: torch.einsum(
+                "n,n...->...", w[pos], torch.stack([x.float() for x in xs])),
+                *ws["models"])
+        else:
+            part = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                            params)
+        losses = torch.zeros(len(ids), dtype=torch.float32, device=dev)
+        losses[pos] = ws["losses"]
+        total, losses = SH.fleet_sum_tree((part, losses), engine.mesh)
+        avg = tree_map(lambda t, x: t.to(x.dtype), total, params)
+        loss = float(losses.mean())
         if self._server_opt is None:
             return avg, loss
         return self._server_fold(engine, avg), loss

@@ -20,6 +20,12 @@ the groups of one cohort chain through those moments. Bookkeeping entries
 (AdamW's step count) advance in a step only if some client of the group
 is live.
 
+On a fleet mesh a client's server copy and its moments live on the rank
+that owns the client: each rank trains its own clients' copies, and the
+fed-average over the copies (``fold_server``, ``aggregate``) and the
+moments' mean (``base.mean_server_opt``) are all-reduced partial
+sums.
+
 Departures from the reference: (a) ``aggregate`` passes
 ``cfg.use_pallas`` to ``core.aggregation.aggregate_weighted``, so Eq. 8
 of the split stack runs through the hand-written ``aggregate`` kernel
@@ -43,6 +49,7 @@ from repro_torch.federated.strategies import base
 from repro_torch.federated.strategies.base import (CohortResult, RoundContext,
                                                    Strategy, register_strategy)
 from repro_torch.federated.strategies.ssfl import SuperSFL
+from repro_torch.launch import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.optim import apply_updates
 from repro_torch.tree import (grad_leaves, tree_flatten_with_path,
@@ -119,7 +126,8 @@ class SplitFedBase(Strategy):
         client and server copies, each stepped on its own server-loss
         gradients. Returns ``(server copies, srv_slice, losses)``: the
         trained copies (rows ``[d:]``), the group's fed-averaged server
-        state and each client's final-step loss."""
+        state and each client's final-step loss; on a fleet mesh the
+        copies and losses of the clients this rank owns."""
         cfg, opt = engine.cfg, engine.optimizer
         wcfg = SN.width_cfg(cfg, width)
         dev = engine.device
@@ -132,20 +140,22 @@ class SplitFedBase(Strategy):
                                engine.batch_size).astype(np.int64),
             device=dev)
         dd = engine.device_data
+        mine = np.where(engine.owned(ids))[0]   # the cohort positions here
+        m = len(mine)
         # the optimizers and apply_updates build new tensors, so the
         # copies may start as shared references to one tree
-        clients = [client_p] * n
-        servers = [server_p] * n
-        eph = [opt.init(client_p) for _ in range(n)]
-        srv = base.broadcast_server_opt(srv_slice, n)
+        clients = [client_p] * m
+        servers = [server_p] * m
+        eph = [opt.init(client_p) for _ in range(m)]
+        srv = base.broadcast_server_opt(srv_slice, m)
         pdef = tree_structure(server_p)
-        losses = [None] * n
+        losses = [None] * m
         for t in range(engine.local_steps):
             book = None
-            for j in range(n):
-                rows = idx[t, j]
+            for j, i in enumerate(mine):
+                rows = idx[t, i]
                 batch = {"images": dd.images[rows], "label": dd.labels[rows]}
-                if not avail[j]:
+                if not avail[i]:
                     # a stalled client: zero update on both sides, frozen
                     # moments; its loss still counts
                     with torch.no_grad():
@@ -168,11 +178,15 @@ class SplitFedBase(Strategy):
             if book:
                 for s in srv:
                     s.update(book)
-        base.scatter_client_rows(cfg, ws, ids, clients, d, width)
-        loss_t = torch.stack(losses).to(torch.float32)
-        base.record_cohort(ws, ids, loss_t)
-        srv_slice = base.mean_server_opt(srv, server_p) if anyav \
-            else srv_slice
+        base.scatter_client_rows(cfg, ws, ids[mine], clients, d, width)
+        loss_t = (torch.stack(losses).to(torch.float32) if m else
+                  torch.zeros(0, dtype=torch.float32, device=dev))
+        base.record_cohort(ws, ids[mine], loss_t)
+        if anyav:
+            # the live bookkeeping is on the rank of the first live client
+            src = int(engine.owner_of(ids[np.argmax(avail)]))
+            srv_slice = base.mean_server_opt(srv, srv_slice, server_p, n,
+                                             src, engine.mesh)
         return servers, srv_slice, loss_t
 
     def fold_server(self, engine, ws, d, ids, res) -> None:
@@ -181,10 +195,15 @@ class SplitFedBase(Strategy):
         non-stack server leaves over ``den_other``. A stalled client's
         unchanged copy counts like any other."""
         sname = engine.cfg.split_stack_name
-        for copies in res.payload:
-            count = len(copies)
+        groups = SuperSFL._width_groups(engine, ids)
+        for copies, (_, gids) in zip(res.payload, groups):
+            # on a fleet mesh: this rank's copies, maybe none, of the
+            # group's len(gids)
+            count = len(gids)
             total = lambda *xs: torch.stack([x.float() for x in xs]).sum(0)
-            summed = tree_map(total, *copies)
+            summed = tree_map(total, *copies) if copies else tree_map(
+                lambda x: torch.zeros_like(x, dtype=torch.float32),
+                SN.split_params(engine.cfg, engine.state.params, d)[1])
             for path, acc in tree_flatten_with_path(ws["num_stack"]):
                 acc[d:] += tree_get(summed[sname], path)
             ws["den_rows"][d:] += count
@@ -200,6 +219,9 @@ class SplitFedBase(Strategy):
         sname = cfg.split_stack_name
         dev = engine.device
         den_rows = ws["den_rows"]
+        # the fed-average's partial sums, over every rank's copies
+        ws["num_stack"], ws["num_other"] = SH.fleet_sum_tree(
+            (ws["num_stack"], ws["num_other"]), engine.mesh)
         den = torch.as_tensor(np.maximum(den_rows, 1e-9),
                               dtype=torch.float32, device=dev)
         has = torch.as_tensor(den_rows > 0, device=dev)
@@ -223,7 +245,8 @@ class SplitFedBase(Strategy):
             lambda g, s, dep, l, m: AGG.aggregate_weighted(
                 cfg, g, s, dep,
                 torch.as_tensor(self.client_weights(dep, m), device=dev),
-                mask=m, use_pallas=cfg.use_pallas, widths=widths))
+                mask=m, use_pallas=cfg.use_pallas, widths=widths,
+                mesh=engine.mesh))
 
     def comm_cost(self, engine, d, available, ids=None):
         # SplitFed ships BOTH client- and server-side nets through the fed

@@ -29,6 +29,14 @@ with ``tpgf.fuse_tiers`` (Eq. 6-style tier masses, delta mode); under
 branch. The snapshot needs no copy: the optimizers and ``apply_updates``
 build new tensors and never write the server params or moments in place.
 
+On a fleet mesh each rank trains the clients of the cohort that it owns
+(a rank may own none, and then contributes zeros): the pooled server
+gradient is all-reduced once per local step before it is divided by the
+cohort's size, and the tier mass once per sub-cohort, so the server
+update, ``fuse_tiers`` and the moments' fusion run replicated on the
+same inputs on every rank. Whether a cohort reached the server is read
+from the host availability draw, which every rank holds.
+
 Departures from the reference: (a) ``aggregate`` passes
 ``cfg.use_pallas`` to ``core.aggregation.aggregate``, so Eq. 8 runs through
 the hand-written ``aggregate`` kernel on the main path (the reference's
@@ -51,6 +59,7 @@ from repro_torch.core import tpgf as T
 from repro_torch.federated.strategies import base
 from repro_torch.federated.strategies.base import (CohortResult, RoundContext,
                                                    Strategy, register_strategy)
+from repro_torch.launch import sharding as SH
 from repro_torch.optim import apply_updates
 from repro_torch.tree import tree_map, tree_structure
 
@@ -161,57 +170,65 @@ class SuperSFL(Strategy):
         n = len(ids)
         avail = np.asarray(ctx.avail[ids], bool)
         reached = bool(avail.any())
+        # every rank draws the whole cohort's batches: the stream stays
+        # in step on every rank
         idx = torch.as_tensor(
             ctx.sample_indices(ids, engine.local_steps, bs).astype(np.int64),
             device=dev)
         dd = engine.device_data
+        mine = np.where(engine.owned(ids))[0]   # the cohort positions here
         # width slices are strided views: the copies are made contiguous
         # once here, for the kernels downstream
         clients = [tree_map(lambda x: x.clone(
             memory_format=torch.contiguous_format), client_p)
-            for _ in range(n)]
-        heads = [state.head_for(int(i)) for i in ids]
+            for _ in mine]
+        heads = [state.head_for(int(ids[j])) for j in mine]
         eph = [opt.init({"client": c, "local": h})
                for c, h in zip(clients, heads)]
-        l_c = l_s = None
+        l_c = l_s = torch.zeros(0, dtype=torch.float32, device=dev)
         for t in range(engine.local_steps):
             g_sum = None
             lc, ls = [], []
-            for j in range(n):
+            for k, j in enumerate(mine):
                 rows = idx[t, j]
                 batch = {"images": dd.images[rows], "label": dd.labels[rows]}
-                out = T.tpgf_grads_split(cfg, wcfg, clients[j], server_p,
-                                         heads[j], batch, d,
+                out = T.tpgf_grads_split(cfg, wcfg, clients[k], server_p,
+                                         heads[k], batch, d,
                                          server_available=bool(avail[j]))
                 g_sum = out.g_server if g_sum is None else tree_map(
                     torch.add, g_sum, out.g_server)
-                groups = {"client": clients[j], "local": heads[j]}
-                upd, eph[j] = opt.update(
+                groups = {"client": clients[k], "local": heads[k]}
+                upd, eph[k] = opt.update(
                     {"client": out.g_client, "local": out.g_local},
-                    eph[j], groups)
+                    eph[k], groups)
                 new = apply_updates(groups, upd)
-                clients[j], heads[j] = new["client"], new["local"]
+                clients[k], heads[k] = new["client"], new["local"]
                 lc.append(out.loss_client)
                 ls.append(out.loss_server)
             # Alg. 2 line 11: ONE shared server model, updated once per step
             # with the cohort's pooled gradient; frozen if nobody reached it
             if reached:
+                if g_sum is None:       # a rank that owns none of them
+                    g_sum = tree_map(torch.zeros_like, server_p)
+                g_sum = SH.fleet_sum_tree(g_sum, engine.mesh)
                 g_mean = tree_map(lambda g: g / float(n), g_sum)
                 srv_upd, srv_state = opt.update(g_mean, srv_state, server_p)
                 server_p = apply_updates(server_p, srv_upd)
-            l_c, l_s = torch.stack(lc), torch.stack(ls)
-        base.scatter_heads(state, ids, heads)
-        base.scatter_client_rows(cfg, ws, ids, clients, d, width)
-        avail_t = torch.as_tensor(avail, device=dev)
+            if lc:
+                l_c, l_s = torch.stack(lc), torch.stack(ls)
+        base.scatter_heads(state, ids[mine], heads)
+        base.scatter_client_rows(cfg, ws, ids[mine], clients, d, width)
+        avail_t = torch.as_tensor(avail[mine], device=dev)
         losses = torch.where(
             avail_t,
             T.fused_loss(l_c, l_s, d, cfg.split_stack_len - d, cfg.tpgf_eps,
                          cfg.tpgf_variant),
             l_c)
-        base.record_cohort(ws, ids, losses)
+        base.record_cohort(ws, ids[mine], losses)
         mass = torch.sum(torch.where(
             avail_t, 1.0 / (losses + cfg.tpgf_eps),
             torch.zeros((), dtype=torch.float32, device=dev)))
+        mass, = SH.fleet_sum([mass], engine.mesh)
         return server_p, srv_state, losses, mass
 
     def fold_server(self, engine, ws, d, ids, res) -> None:
@@ -234,7 +251,7 @@ class SuperSFL(Strategy):
             engine, ws, ws["server_view"],
             lambda g, s, dep, l, m: AGG.aggregate(
                 cfg, g, s, dep, l, mask=m, use_pallas=cfg.use_pallas,
-                widths=widths)[0])
+                widths=widths, mesh=engine.mesh)[0])
 
     def comm_cost(self, engine, d, available, ids=None):
         # only the client subnetwork crosses the network (paper §III-C);

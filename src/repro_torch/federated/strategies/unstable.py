@@ -100,6 +100,6 @@ class UnstableParticipation(SuperSFL):
             return AGG.aggregate_weighted(cfg, globals_, stacked, depths, w,
                                           mask=mask,
                                           use_pallas=cfg.use_pallas,
-                                          widths=widths)
+                                          widths=widths, mesh=engine.mesh)
         return self._finish_aggregation(engine, ws, ws["server_view"],
                                         agg_fn)

@@ -4,6 +4,13 @@
                 / (sum_n ww[n, l] + lam)
 
 ww already folds the presence mask: ww[n, l] = w_n * (l < d_n).
+
+The numerator mode (``numerator``) stops before the division:
+
+    num[l, f] = sum_n ww[n, l] * c[n, l, f]          (fp32)
+
+so that ranks that each hold some clients' rows can sum their numerators
+before one division.
 """
 from __future__ import annotations
 
@@ -16,3 +23,8 @@ def aggregate(c, ww, s, lam):
     den = ww.sum(dim=0).float()[:, None]
     out = (num + lam * s.float()) / (den + lam)
     return out.to(s.dtype)
+
+
+def numerator(c, ww):
+    """c [N, L, F]; ww [N, L] -> [L, F] fp32: Eq. 8's numerator."""
+    return torch.einsum("nl,nlf->lf", ww.float(), c.float())

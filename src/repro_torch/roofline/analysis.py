@@ -91,6 +91,15 @@ def aggregate_work(n_clients: int, n_layers: int, feat: int
             2.0 * N * L * F + 3.0 * L * F)
 
 
+def aggregate_numerator_work(n_clients: int, n_layers: int, feat: int
+                             ) -> Tuple[float, float]:
+    """``aggregate``'s numerator mode, fp32: the client stack [N, L, F]
+    and the weights [N, L] read, the numerators [L, F] written; a
+    multiply-add per client element."""
+    N, L, F = n_clients, n_layers, feat
+    return 4.0 * N * L * F + 4.0 * N * L + 4.0 * L * F, 2.0 * N * L * F
+
+
 def tier_sum_work(n_tiers: int, n: int) -> Tuple[float, float]:
     """``tier_sum``, fp32: T leaves of ``n`` read, one written; T products
     and T − 1 sums per element."""

@@ -51,6 +51,18 @@ def tree_unflatten(paths, leaves) -> dict:
     return out
 
 
+def tree_rebuild(tree, new: dict, prefix: Tuple = ()):
+    """``tree``'s containers with the leaf at each path taken from
+    ``new`` (a dict from ``tree_flatten_with_path``'s paths)."""
+    if isinstance(tree, dict):
+        return {k: tree_rebuild(v, new, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_rebuild(t, new, prefix + (i,))
+                          for i, t in enumerate(tree))
+    return new[prefix]
+
+
 def grad_leaves(tree) -> Tuple[List[Tuple], List[Any]]:
     """(paths, fresh autograd leaves with ``tree``'s values): the inputs
     of a ``torch.autograd.grad`` over a parameter tree, rebuilt into a

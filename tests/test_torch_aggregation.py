@@ -59,6 +59,26 @@ def test_aggregate_plain_version_matches_pallas_kernel(N, Lk, rest):
                                    0.01).reshape(s.shape).numpy())
 
 
+@pytest.mark.parametrize("N,Lk,rest", [(3, 2, (40,)), (8, 3, (7, 11, 5))])
+def test_aggregate_numerator_plain_version_matches_pallas_kernel(N, Lk, rest):
+    """The numerator mode's plain version (a fleet mesh's ranks sum their
+    own rows with it before one all-reduce): with s = 0 the reference
+    kernel returns num / (den + lam), so num is its output times
+    (den + lam)."""
+    rng = np.random.default_rng(7)
+    c = rng.normal(size=(N, Lk) + rest).astype(np.float32)
+    ww = rng.uniform(0, 1, (N, Lk)).astype(np.float32)
+    s = np.zeros((Lk,) + rest, np.float32)
+    out = np.asarray(JAO.aggregate_leaf(jnp.asarray(c), jnp.asarray(ww),
+                                        jnp.asarray(s), 0.01))
+    scale = (ww.sum(0) + 0.01).reshape((Lk,) + (1,) * len(rest))
+    before = TAO.aggregate_numerator.launches
+    got = TAO.aggregate_numerator(torch.tensor(c), torch.tensor(ww))
+    assert TAO.aggregate_numerator.launches == before   # CPU: plain version
+    assert got.dtype == torch.float32 and tuple(got.shape) == s.shape
+    np.testing.assert_allclose(got.numpy(), out * scale, **TOL)
+
+
 def test_aggregate_all_zero_weights_returns_server_value():
     rng = np.random.default_rng(0)
     c = rng.normal(size=(3, 2, 128)).astype(np.float32)

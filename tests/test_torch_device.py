@@ -3,7 +3,9 @@
 ``init_train_state``, ``bridge.to_model_params`` and ``bridge.to_torch``
 resolve ``device=None`` to CUDA and, without a card, raise and ask for
 ``device="cpu"``; asked for the CPU they build there. (``Engine`` is
-held to the same rule by ``tests/test_torch_engine.py``.)"""
+held to the same rule by ``tests/test_torch_engine.py``.) So does
+``launch.mesh.make_fleet_mesh``, before it makes any process group (its
+CPU meshes are built by ``tests/_torch_multidevice_child.py``)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -56,3 +58,12 @@ def test_resolve_device_is_the_engines():
     assert TE.resolve_device is resolve_device
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device("meta") == torch.device("meta")
+
+
+def test_make_fleet_mesh_defaults_to_the_card(monkeypatch):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_fleet_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_fleet_mesh(1)
+    assert not dist.is_initialized()

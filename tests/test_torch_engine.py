@@ -142,13 +142,15 @@ def test_engine_needs_a_device_without_cuda(monkeypatch):
 
 
 # ``sanitize=True`` left this list when the sanitizer was ported
-# (tests/test_torch_sanitize.py holds it)
-@pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "Fleet sharding"),
+# (tests/test_torch_sanitize.py holds it), and ``mesh=`` when fleet
+# sharding was (tests/test_torch_multidevice.py): a mesh that is not a
+# torch ``DeviceMesh`` is refused
+@pytest.mark.parametrize("kw,exc,match", [
+    ({"mesh": object()}, TypeError, "DeviceMesh"),
 ])
-def test_outside_the_slice_raises(kw, match):
+def test_outside_the_slice_raises(kw, exc, match):
     cfg = TB.get_reduced("vit16_cifar").replace(**SMALL)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         TEngine(cfg, 3, "ssfl", device="cpu", **kw)
 
 

@@ -2,9 +2,12 @@
 ``tests/test_fleetlint.py``.
 
 Held: the port's corpus (``tests/_torch_fleetlint_corpus/``, parsed and
-never imported) fires FL004, torch's global stream included, and FL005,
-the sanitizer's ``slot_outputs`` hook included, with the counts given,
-and its good files are clean; on the reference's own FL004 and FL005
+never imported) fires FL003 (a collective outside ``launch/sharding.py``,
+on the WORLD group or a group not from ``fleet_group``), FL004, torch's
+global stream included, and FL005, the sanitizer's ``slot_outputs`` hook
+included, with the counts given, and its good files are clean; inside
+``launch/sharding.py`` FL003 passes ``all_reduce`` and ``broadcast`` on
+``fleet_group`` and flags any other collective or group; on the reference's own FL004 and FL005
 corpus files the port's linter gives the same (code, line) findings as
 ``repro.analysis.fleetlint``; ``src/repro_torch`` lints clean; every
 suppression in it carries a reason; ``main``'s exit codes and the
@@ -38,6 +41,9 @@ def codes_for(path: Path) -> Counter:
 
 
 @pytest.mark.parametrize("name,code,count", [
+    ("fl003_bad.py", "FL003", 5),    # WORLD group, a foreign group, a
+                                     # broadcast, an all_gather and a
+                                     # barrier outside the helpers
     ("fl004_bad.py", "FL004", 13),   # clock, numpy global, unseeded,
                                      # manual_seed, 6 torch samplers,
                                      # 3 in-place samplers
@@ -59,7 +65,8 @@ def test_torch_global_stream_calls_are_named():
         assert any(call in m for m in msgs), call
 
 
-@pytest.mark.parametrize("name", ["fl004_good.py", "fl005_good.py"])
+@pytest.mark.parametrize("name", ["fl003_good.py", "fl004_good.py",
+                                  "fl005_good.py"])
 def test_good_corpus_is_clean(name):
     assert lint_paths([CORPUS / name]) == []
 
@@ -87,6 +94,28 @@ def test_suppression_select_and_scope():
         "torch.randn(3), t  # fleetlint: disable=FL004 — test")
     assert [f.line for f in lint_source(hushed, "core/h.py")] == [4]
     assert lint_source(src, "data/h.py", select=["FL005"]) == []
+
+
+def test_fl003_in_the_fleet_helpers():
+    src = ("import torch.distributed as dist\n"
+           "def fleet_group(mesh):\n"
+           "    return mesh.get_group('data')\n"
+           "def helpers(x, mesh, other):\n"
+           "    group = fleet_group(mesh)\n"
+           "    dist.all_reduce(x, group=fleet_group(mesh))\n"
+           "    dist.broadcast(x, src=0, group=group)\n"
+           "    dist.all_reduce(x, group=other)\n"
+           "    dist.all_gather([x], x, group=group)\n"
+           "    dist.all_reduce(x)\n")
+    got = lint_source(src, "launch/sharding.py")
+    assert [(f.code, f.line) for f in got] == [("FL003", 8), ("FL003", 9),
+                                               ("FL003", 10)]
+    assert "all_reduce and broadcast" in got[1].message
+    assert "WORLD group" in got[2].message
+    # the same lines outside the helpers: every collective is a finding,
+    # and outside the round path's scope none names its group
+    out = lint_source(src, "tools/helper.py")
+    assert len(out) == 5 and all("WORLD" not in f.message for f in out)
 
 
 def test_finding_format_has_fixit():

@@ -1,7 +1,8 @@
 """The port stands alone: no file under ``src/repro_torch/``, and not
-``chip_smoke.py``, the port's examples (``examples/*_torch.py``) or its
-tools (``tools/*_torch.py``), imports ``jax`` or the JAX package
-``repro``; and
+``chip_smoke.py``, the port's examples (``examples/*_torch.py``), its
+tools (``tools/*_torch.py``) or the multi-rank test child
+(``tests/_torch_multidevice_child.py``), imports ``jax`` or the JAX
+package ``repro``; and
 ``import repro_torch`` (every module of it) works in a fresh interpreter
 where ``jax`` and ``repro`` cannot be imported."""
 import ast
@@ -22,7 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _sources():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
             + sorted((ROOT / "examples").glob("*_torch.py"))
-            + sorted((ROOT / "tools").glob("*_torch.py")))
+            + sorted((ROOT / "tools").glob("*_torch.py"))
+            + [ROOT / "tests" / "_torch_multidevice_child.py"])
 
 
 def _imported_roots(path: Path):
@@ -49,7 +51,8 @@ def test_port_sources_exist():
                  "federated/strategies/async_buffered.py",
                  "federated/strategies/hasfl.py", "federated/buffer.py",
                  "federated/round.py", "federated/sanitize.py",
-                 "roofline/analysis.py", "analysis/fleetlint.py"):
+                 "roofline/analysis.py", "analysis/fleetlint.py",
+                 "launch/mesh.py", "launch/sharding.py"):
         assert want in names, want
     for example in ("quickstart_torch.py", "fault_tolerance_torch.py"):
         assert (ROOT / "examples" / example).exists(), example

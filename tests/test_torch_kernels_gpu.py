@@ -32,6 +32,8 @@ full-size fp32 Whisper prefill: one launch in each decoder layer,
 kernels on vs off within 1e-3 of the largest logit, the cross-attention
 cache bit for bit.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -174,6 +176,27 @@ def test_aggregate_kernel_matches_plain(cuda, N, Lk, rest, dtype, tol):
                        0.01).reshape(s.shape)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol * 0.1)
+
+
+@pytest.mark.parametrize("N,Lk,rest", [(3, 2, (40,)), (4, 12, (48, 96)),
+                                       (0, 3, (17,))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aggregate_numerator_mode_matches_plain(cuda, N, Lk, rest, dtype):
+    """The numerator mode a fleet mesh's ranks run on their own rows:
+    fp32 sum_n ww c (a rank may own no client: zeros), within the full
+    mode's 1e-5 of the plain version."""
+    from repro_torch.kernels.layer_aggregate import ops as O, ref as R
+    g = torch.Generator(device=cuda).manual_seed(2)
+    c = torch.randn((N, Lk) + rest, generator=g, device=cuda).to(dtype)
+    ww = torch.rand((N, Lk), generator=g, device=cuda)
+    before = O.aggregate_numerator.launches
+    got = O.aggregate_numerator(c, ww)
+    torch.cuda.synchronize()
+    assert O.aggregate_numerator.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == c.shape[1:]
+    F = c[0, 0].numel() if N else math.prod(rest)
+    want = R.numerator(c.reshape(N, Lk, F), ww).reshape(got.shape)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
 def test_aggregate_kernel_all_zero_weights(cuda):

@@ -109,6 +109,9 @@ BOUNDS = {
               "float32", 0.0282, "bytes"),
     "aggregate": (lambda s: RF.aggregate_work(*s["aggregate"]),
                   "float32", 0.3380, "bytes"),
+    "aggregate_numerator": (
+        lambda s: RF.aggregate_numerator_work(*s["aggregate_numerator"]),
+        "float32", 0.1690, "bytes"),
     "flash": (lambda s: RF.flash_work(*s["flash"]),
               "bfloat16", 0.1043, "operations"),
     "flash_mixtral": (lambda s: RF.flash_work(*s["flash_mixtral"]),

@@ -22,10 +22,12 @@ dispatch mode; the float check catches a NaN that a later ``where``
 masks out and a division by zero, and passes an exception raised inside
 a step through as itself.
 
-No counterpart: ``TestAccounting`` counts XLA compiles of the
-checkified kernels, and the port compiles nothing per cohort;
-``TestMeshSmoke`` runs on a fleet mesh, which the port does not have
-until fleet sharding (ROADMAP queue 1, item 8).
+No counterpart here: ``TestAccounting`` counts XLA compiles of the
+checkified kernels, and the port compiles nothing per cohort.
+``TestMeshSmoke``'s counterpart, the sanitizer on a fleet mesh (healthy
+rounds against the meshless engine, and a NaN trip raised on every rank
+with the client's global cohort position), is in
+``tests/test_torch_multidevice.py``.
 """
 import numpy as np
 import pytest
