@@ -199,13 +199,44 @@ Phases, one JSON line each (plus the card's name and power limit as
      through ``launch/train.py``'s config and loop (one microbatch,
      bf16, remat, ``adamw(1e-3)``) with the kernels off, 3 steps of
      8 × 512: finite losses, no kernel launch, the same figures;
- 21. the ``kernels`` summary line (seven rows: the six kernels and
+ 21. lm mesh path — the LM families' sharded path (``models/sharded.py``)
+     on a one-rank NCCL mesh of shape (1, 1) (``launch.mesh.
+     make_test_mesh``), each against the meshless run of the same seed:
+     Llama-3.2-3B whole, a prefill of 4 × 2,048 tokens and 8 decode steps
+     fed the meshless run's tokens (``flash_attention`` 28 times, in each
+     attention region's ``local_map``), then Mamba2-2.7B at 4 of its 64
+     layers, a prefill (``ssd_scan`` 4 times) and a train step (``fuse``
+     on the gradient shards). Bit for bit is expected and reported; the
+     gates are the launch counts, equal, and the serve and train limits
+     (``BF16_LOGIT_TOL``, ``TRAIN_LOSS_RTOL``). ``python3 chip_smoke.py
+     --lm-mesh`` on a machine of four cards runs, after the environment
+     and build phases, the one-card runs on card 0 and then one NCCL rank
+     a card (the script started again, ``--lm-rank <r> <world> <dir>``,
+     an internal mode like ``--fleet-rank``): (a) Mixtral-8x7B whole (32
+     layers, bf16, seed 0) on ``make_test_mesh((1, 4))``, a prefill of 2
+     × 8,192 tokens and 32 decode steps with the kernels on (windowed
+     flash 32 times a prefill on each rank, at its 8 query and 2 kv
+     heads), then off from the same weights (within
+     ``BF16_LOGIT_TOL["moe"]``); at 16 layers against the one-card run
+     (the same limit, decode fed its tokens); at 4 layers in fp32 within
+     ``FP32_LOGIT_TOL``, with no routing flip above ``FP32_FLIP_MARGIN``
+     in the first layer where the runs part; (b) Mamba2-2.7B trained on
+     ``make_test_mesh((4, 1))`` (FSDP; one microbatch; 3 steps of 8 ×
+     512; ``fuse`` on each rank's shards): losses within
+     ``TRAIN_LOSS_RTOL`` of the one-card run, and at 4 layers in fp32
+     trained by SGD within 1e-5, the parameters within 1e-4 (AdamW's
+     first steps turn a near-zero gradient's flipped sign into 2·lr). Each rank's line carries
+     its walls, peak memory, the bytes and calls of its collectives by
+     kind and their seconds from issue to wait by CUDA events
+     (``roofline.CollectiveCounter``, on one more prefill and train
+     step), and rank 0's idle share; on one card it exits 1;
+ 22. the ``kernels`` summary line (seven rows: the six kernels and
      ``aggregate``'s numerator mode, whose launches are the fleet mesh
      path's, summed over its ranks); each kernel's ``launches`` come from
      the path named beside it (counts set to 0 just before that path),
-     and ``also_on`` lists their launches on the scenario paths and the
-     moe, vlm and audio paths; the training paths' launches get a line
-     of their own.
+     and ``also_on`` lists their launches on the scenario paths, the
+     moe, vlm and audio paths and the lm mesh path; the training paths'
+     launches get a line of their own.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it; so does a machine without a CUDA device, and a
@@ -718,7 +749,8 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
                 build_log):
     """``flash_attention`` against its plain version on the card: the
     serve path's shape and Hymba's in bf16 and fp32, Mixtral's windowed
-    shapes (S 8,192 and its teacher-forced 8,160, window 4,096),
+    shapes (S 8,192 and its teacher-forced 8,160, window 4,096, and one
+    rank's 8 query and 2 kv heads of it on ``--lm-mesh``'s (1, 4) mesh),
     InternVL2's and Whisper's decoder (multi-head, head_dim 64, S 224),
     a window, MQA, every
     head dim, ragged S (one row past a tile), a window across tile edges,
@@ -752,6 +784,11 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
              (f"mixtral/1x{ms_moe - SERVE_GEN}x{mh}x{mk}x{mhd}/"
               f"window{mwin}", (1, ms_moe - SERVE_GEN, ms_moe - SERVE_GEN,
                                 mh, mk, mhd), True, mwin),
+             # one rank's heads of it on --lm-mesh's (1, 4) mesh
+             (f"mixtral_rank/1x{ms_moe}x{mh // LM_MESH_RANKS}x"
+              f"{mk // LM_MESH_RANKS}x{mhd}/window{mwin}",
+              (1, ms_moe, ms_moe, mh // LM_MESH_RANKS, mk // LM_MESH_RANKS,
+               mhd), True, mwin),
              (f"internvl2/{vb}x{vs}x{vh}x{vk}x{vhd}",
               (vb, vs, vs, vh, vk, vhd), True, 0),
              (f"whisper/{ab}x{as_}x{ah}x{ak}x{ahd}",
@@ -833,6 +870,9 @@ def phase_flash(shape, hybrid_shape, moe_shape, vlm_shape, audio_shape,
         at_shapes = {}
         for label, args, kw in (
                 ("mixtral", (mb, ms_moe, mh, mk, mhd),
+                 dict(window=mwin, plain_b=1)),
+                ("mixtral_rank", (mb, ms_moe, mh // LM_MESH_RANKS,
+                                  mk // LM_MESH_RANKS, mhd),
                  dict(window=mwin, plain_b=1)),
                 ("internvl2", vlm_shape, {}),
                 ("whisper", audio_shape, {})):
@@ -1523,6 +1563,503 @@ def phase_fleet_nccl():
         die(f"--fleet-nccl needs two cards or more, found {world}")
     cfg = get_config("vit16_cifar").replace(use_pallas=True)
     return _fleet_ranks(world, "nccl", _fleet_meshless(cfg))
+
+
+# ------------------------------------------------------- LM mesh paths
+# the one-card mesh path: Llama-3.2-3B's serve path at 8 decode steps,
+# Mamba2-2.7B at 4 of its 64 layers
+LM_MESH_DECODE, LM_MESH_SSM_LAYERS = 8, 4
+LM_MESH_RANKS = 4
+LM_MESH_TIMEOUT_S = 300     # each --lm-mesh rank's process-group timeout
+# a mesh run keeps every LOGIT_STRIDE-th position's prefill logits to
+# compare with another run (the full ones are [2, 8192, 32000])
+LOGIT_STRIDE = 64
+# --lm-mesh's fp32 training gates: the mesh against one card, trained by
+# SGD (AdamW's first steps move each weight by about lr·sign(g), so a
+# gradient near 0 whose sign the sums' order flips moves it by 2·lr: the
+# parity tests take SGD for that reason)
+MESH_FP32_LOSS_TOL, MESH_FP32_PARAM_TOL = 1e-5, 1e-4
+MESH_FP32_SGD_LR = 0.1
+
+
+def _whole(x):
+    """A sharded result as the whole tensor on this rank."""
+    from repro_torch.launch.sharding import is_dtensor
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _seeded(cfg, mesh=None):
+    """``cfg``'s seed-0 weights on the card (this rank's shards on a
+    mesh: every rank draws the meshless stream)."""
+    import torch
+    from repro_torch.models.model import init_params
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda", mesh=mesh)
+
+
+def _mesh_serve(cfg, params, inputs, steps: int, fed=None):
+    """A prefill of ``inputs`` and ``steps`` decode steps (fed the tokens
+    ``fed`` [B, steps] when given, else greedy) through the steps' entry
+    points (sharded parameters take the sharded path): (every
+    LOGIT_STRIDE-th position's prefill logits, the decode logits [B,
+    steps, V], the tokens decode took, prefill s, decode s)."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    prefill = make_prefill_step(cfg, decode_budget=steps)
+    serve = make_serve_step(cfg)
+    V = cfg.vocab
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, inputs)
+    logits = _whole(logits)
+    tok = logits[:, -1:, :V].argmax(dim=-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    sub = logits[:, ::LOGIT_STRIDE].float()
+    del logits
+    out, toks = [], []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(steps):
+        if fed is not None:
+            tok = fed[:, i:i + 1]
+        toks.append(tok)
+        lg, cache = serve(params, cache, tok)
+        lg = _whole(lg)
+        out.append(lg.float())
+        tok = lg[:, :, :V].argmax(dim=-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    return sub, torch.cat(out, 1), torch.cat(toks, 1), prefill_s, decode_s
+
+
+def _host_params(params):
+    """{path: the whole leaf in fp32 on the host} (shards gathered)."""
+    from repro_torch.tree import tree_flatten_with_path
+    return {p: _whole(x).detach().float().cpu()
+            for p, x in tree_flatten_with_path(params)}
+
+
+def _train_steps(cfg, params, batches, mesh=None, opt=None):
+    """``make_train_step`` (``opt``; default its AdamW) over ``batches``,
+    placed by ``batch_pspecs`` on a mesh: (params, each step's losses and
+    wall)."""
+    import torch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_train_step
+    step, opt = make_train_step(cfg, opt)
+    state = opt.init(params)
+    recs = []
+    for b in batches:
+        if mesh is not None:
+            b = SH.distribute_tree(b, SH.batch_pspecs(cfg, None, b, mesh),
+                                   mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        recs.append({"loss_client": float(m["loss_client"]),
+                     "loss_server": float(m["loss_server"]),
+                     "wall_s": time.perf_counter() - t0})
+    del state
+    return params, recs
+
+
+def _losses_close(got, want, rtol: float = 0.0, atol: float = 0.0):
+    return all(abs(g[k] - w[k]) <= atol + rtol * abs(w[k])
+               for g, w in zip(got, want)
+               for k in ("loss_client", "loss_server"))
+
+
+def phase_lm_mesh_path():
+    """The LM families' sharded path on a one-rank NCCL mesh of shape
+    (1, 1) (module docstring, 21): Llama-3.2-3B whole, a prefill of 4 ×
+    2,048 tokens and 8 decode steps (28 flash launches a prefill, each in
+    its attention region's ``local_map``), and Mamba2-2.7B at 4 layers, a
+    prefill (4 ``ssd_scan`` launches) and a train step (``fuse`` on the
+    gradient shards), each against the meshless run of the same seed: bit
+    for bit expected, the serve and train limits the gate, the launch
+    counts equal. Returns the mesh runs' launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.launch.train import device_batches
+    mesh = make_test_mesh((1, 1))
+    out = {"phase": "lm_mesh_path", "mesh": "1x1",
+           "backend": dist.get_backend(), "card": RUN.get("card")}
+
+    cfg = get_config(SERVE_ARCH).replace(use_pallas=True)
+    inputs = _serve_inputs(cfg, SERVE_BATCH, SERVE_PROMPT)
+    runs = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        params = _seeded(cfg, m)
+        _zero_counts()
+        runs[name] = _mesh_serve(cfg, params, inputs, LM_MESH_DECODE,
+                                 fed=runs["meshless"][2] if m else None)
+        runs[name] += (_counts(),)
+        del params
+        torch.cuda.empty_cache()
+    a, b = runs["meshless"], runs["mesh"]
+    llama = {"prefill_ms": {k: r[3] * 1e3 for k, r in runs.items()},
+             "decode_ms_per_step": {k: r[4] * 1e3 / LM_MESH_DECODE
+                                    for k, r in runs.items()},
+             "launches": {k: r[5] for k, r in runs.items()},
+             "bit_for_bit": bool(torch.equal(a[0], b[0])
+                                 and torch.equal(a[1], b[1])),
+             "prefill_rel_diff": _rel_logit_diff(b[0], a[0]),
+             "decode_rel_diff": _rel_logit_diff(b[1], a[1])}
+    del runs, a, b
+    cfg = get_config(SSM_ARCH).replace(use_pallas=True,
+                                       n_layers=LM_MESH_SSM_LAYERS)
+    inputs = _serve_inputs(cfg, SERVE_BATCH, SERVE_PROMPT)
+    batches = list(device_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, 1, "cuda"))
+    runs = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        params = _seeded(cfg, m)
+        _zero_counts()
+        logits = _whole(make_prefill_step(cfg)(params, inputs)[0])
+        served = _counts()
+        _zero_counts()
+        params, recs = _train_steps(cfg, params, batches, m)
+        runs[name] = (logits[:, ::LOGIT_STRIDE].float(), recs, served,
+                      _counts(), _host_params(params))
+        del params, logits
+        torch.cuda.empty_cache()
+    a, b = runs["meshless"], runs["mesh"]
+    dparam = max(float((b[4][p] - x).abs().max()) for p, x in a[4].items())
+    losses = {k: [{n: v for n, v in rec.items() if n != "wall_s"}
+                  for rec in r[1]] for k, r in runs.items()}
+    mamba = {"layers": LM_MESH_SSM_LAYERS,
+             "prefill_launches": {k: r[2] for k, r in runs.items()},
+             "train_launches": {k: r[3] for k, r in runs.items()},
+             "train": {k: r[1] for k, r in runs.items()},
+             "bit_for_bit": bool(torch.equal(a[0], b[0]) and dparam == 0.0
+                                 and losses["mesh"] == losses["meshless"]),
+             "prefill_rel_diff": _rel_logit_diff(b[0], a[0]),
+             "max_param_diff": dparam}
+    del runs, a, b
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({**out, "llama": llama, "mamba2": mamba})
+    if llama["launches"]["mesh"] != llama["launches"]["meshless"] or \
+            llama["launches"]["mesh"]["flash_attention"] != \
+            get_config(SERVE_ARCH).n_layers:
+        die(f"lm_mesh_path: Llama launched {llama['launches']}")
+    pre, tr = mamba["prefill_launches"], mamba["train_launches"]
+    if pre["mesh"] != pre["meshless"] or tr["mesh"] != tr["meshless"] or \
+            pre["mesh"]["ssd_scan"] != LM_MESH_SSM_LAYERS or \
+            tr["mesh"]["fuse"] <= 0:
+        die(f"lm_mesh_path: Mamba2 launched {pre}, {tr}")
+    if max(llama["prefill_rel_diff"], llama["decode_rel_diff"]) > \
+            BF16_LOGIT_TOL["dense"] or \
+            mamba["prefill_rel_diff"] > BF16_LOGIT_TOL["ssm"] or \
+            not _losses_close(mamba["train"]["mesh"],
+                              mamba["train"]["meshless"], TRAIN_LOSS_RTOL):
+        die(f"lm_mesh_path: the mesh disagrees with the meshless run: "
+            f"Llama {llama['prefill_rel_diff']}, "
+            f"{llama['decode_rel_diff']}; Mamba2 "
+            f"{mamba['prefill_rel_diff']}, {mamba['train']}")
+    return {k: llama["launches"]["mesh"][k] + pre["mesh"][k] + tr["mesh"][k]
+            for k in llama["launches"]["mesh"]}
+
+
+def _probe_layers(sets, margins, n_layers):
+    """A probe's prefill router calls, per layer (``_by_layer``)."""
+    import types
+    probe = types.SimpleNamespace(sets=sets, margins=margins)
+    return _by_layer(probe, 0, len(sets), n_layers)
+
+
+def _mesh_opt(key: str):
+    """The optimizer of a ``--lm-mesh`` training run: the config's AdamW,
+    SGD for the fp32 gate (see MESH_FP32_SGD_LR)."""
+    from repro_torch.optim import sgd
+    return sgd(MESH_FP32_SGD_LR) if key == "train_fp32" else None
+
+
+def _lm_mesh_refs(workdir):
+    """``--lm-mesh``'s one-card runs on card 0, before the ranks start:
+    Mixtral at 4 layers in fp32 (a prefill, its routing) and at 16 in
+    bf16 (a prefill and 32 greedy decode steps), Mamba2 whole in bf16
+    and at 4 layers in fp32 by SGD (3 train steps each). Written to
+    ``<workdir>/ref.pt`` (the fp32 Mamba2's final weights to
+    ``ref_params.pt``); returns their walls."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.launch.train import device_batches
+    ref, walls = {}, {}
+    moe = get_config(MOE_ARCH).replace(use_pallas=True)
+    inputs = _serve_inputs(moe, MOE_SERVE_BATCH, MOE_SERVE_PROMPT)
+    cfg = moe.replace(dtype="float32", n_layers=MOE_FP32_LAYERS)
+    params = _seeded(cfg)
+    with _RouteProbe(True) as probe:
+        logits = make_prefill_step(cfg)(params, inputs)[0]
+    ref["fp32"] = (logits[:, ::LOGIT_STRIDE].float().cpu(),
+                   [x.cpu() for x in probe.sets],
+                   [x.cpu() for x in probe.margins])
+    del params, logits, probe
+    torch.cuda.empty_cache()
+    params = _seeded(moe.replace(n_layers=MOE_SERVE_LAYERS))
+    sub, steps, fed, pre_s, dec_s = _mesh_serve(
+        moe.replace(n_layers=MOE_SERVE_LAYERS), params, inputs, SERVE_GEN)
+    ref["bf16"] = (sub.cpu(), steps.cpu(), fed.cpu())
+    walls["moe16_prefill_ms"] = pre_s * 1e3
+    walls["moe16_decode_ms_per_step"] = dec_s * 1e3 / SERVE_GEN
+    del params, sub, steps
+    torch.cuda.empty_cache()
+    ssm = get_config(SSM_ARCH).replace(use_pallas=True, microbatches=1)
+    for key, cfg in (("train", ssm),
+                     ("train_fp32", ssm.replace(dtype="float32",
+                                                n_layers=LM_MESH_SSM_LAYERS))):
+        batches = list(device_batches(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                      TRAIN_STEPS, "cuda"))
+        params, ref[key] = _train_steps(cfg, _seeded(cfg), batches,
+                                        opt=_mesh_opt(key))
+        walls[f"{key}_step_ms"] = [r["wall_s"] * 1e3 for r in ref[key]]
+        if key == "train_fp32":
+            torch.save(_host_params(params),
+                       os.path.join(workdir, "ref_params.pt"))
+        del params, batches
+        torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(workdir, "ref.pt"))
+    return walls
+
+
+def _lm_mesh_rank(rank, world, workdir):
+    """One NCCL rank of ``--lm-mesh`` (this script started again with
+    ``--lm-rank <r> <world> <workdir>``), on card ``r``: (a) Mixtral-8x7B
+    on ``make_test_mesh((1, world))``, (b) Mamba2-2.7B training on
+    ``make_test_mesh((world, 1))`` (module docstring). Its figures go to
+    ``<workdir>/rank<r>.json``, rank 0's compared tensors to
+    ``<workdir>/mesh.pt``. It prints nothing."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/store",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=LM_MESH_TIMEOUT_S))
+    try:
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.launch.steps import make_prefill_step
+        from repro_torch.launch.train import device_batches
+        from repro_torch.roofline import CollectiveCounter
+        ref = torch.load(os.path.join(workdir, "ref.pt"))
+        res, keep = {"rank": rank}, {}
+        mesh = make_test_mesh((1, world))
+        moe = get_config(MOE_ARCH).replace(use_pallas=True)
+        inputs = _serve_inputs(moe, MOE_SERVE_BATCH, MOE_SERVE_PROMPT)
+        ntok = MOE_SERVE_BATCH * MOE_SERVE_PROMPT
+        cfg = moe.replace(dtype="float32", n_layers=MOE_FP32_LAYERS)
+        params = _seeded(cfg, mesh)
+        with _RouteProbe(True) as probe:
+            logits = _whole(make_prefill_step(cfg)(params, inputs)[0])
+        keep["fp32"] = (logits[:, ::LOGIT_STRIDE].float().cpu(),
+                        [x.cpu() for x in probe.sets],
+                        [x.cpu() for x in probe.margins])
+        del params, logits, probe
+        torch.cuda.empty_cache()
+        cfg = moe.replace(n_layers=MOE_SERVE_LAYERS)
+        params = _seeded(cfg, mesh)
+        sub, steps, _, _, _ = _mesh_serve(cfg, params, inputs, SERVE_GEN,
+                                          fed=ref["bf16"][2].to("cuda"))
+        keep["bf16"] = (sub.cpu(), steps.cpu())
+        del params, sub, steps
+        torch.cuda.empty_cache()
+        # Mixtral whole: kernels on, then off from the same weights
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = _seeded(moe, mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _zero_counts()
+        on = _mesh_serve(moe, params, inputs, SERVE_GEN)
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prefill = make_prefill_step(moe)
+        # the collectives' bytes, and their time from issue to wait by
+        # CUDA events, of one more prefill (the counting mode's dispatch
+        # costs host time, so the walls above ran without it)
+        with CollectiveCounter(timed=True) as prefill_cc:
+            prefill(params, inputs)
+        busy = None
+        if rank == 0:
+            busy = _profile(lambda: prefill(params, inputs), on[3],
+                            "lm_mesh_moe_prefill")
+        else:                   # the same collectives as rank 0's
+            prefill(params, inputs)
+        # kernels off, the same collectives: counted over prefill + decode
+        with CollectiveCounter(timed=True) as serve_cc:
+            off = _mesh_serve(moe.replace(use_pallas=False), params, inputs,
+                              SERVE_GEN, fed=on[2])
+        res["moe"] = {
+            "layers": moe.n_layers, "init_s": init_s,
+            "prefill_ms": on[3] * 1e3, "prefill_tokens_per_s": ntok / on[3],
+            "decode_ms_per_step": on[4] * 1e3 / SERVE_GEN,
+            "decode_tokens_per_s": MOE_SERVE_BATCH * SERVE_GEN / on[4],
+            "launches": launches, "peak_mem_gb": peak,
+            "prefill_collectives": prefill_cc.summary(),
+            "serve_collectives_kernels_off": serve_cc.summary(),
+            "prefill_device_busy_ms": busy,
+            "prefill_idle_share": (None if busy is None else
+                                   max(0.0, 1 - busy / (on[3] * 1e3))),
+            "kernels_on_vs_off": {
+                "prefill": _rel_logit_diff(on[0], off[0]),
+                "decode": _rel_logit_diff(on[1], off[1])},
+            "generated_req0": on[2][0, :8].tolist()}
+        del params, on, off
+        torch.cuda.empty_cache()
+        # (b) Mamba2 training, FSDP over the ranks
+        mesh = make_test_mesh((world, 1))
+        ssm = get_config(SSM_ARCH).replace(use_pallas=True, microbatches=1)
+        for key, cfg in (("train", ssm),
+                         ("train_fp32", ssm.replace(
+                             dtype="float32",
+                             n_layers=LM_MESH_SSM_LAYERS))):
+            batches = list(device_batches(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                          TRAIN_STEPS, "cuda"))
+            params = _seeded(cfg, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            params, recs = _train_steps(cfg, params, batches, mesh,
+                                        _mesh_opt(key))
+            res[key] = {"steps": recs, "launches": _counts(),
+                        "step_tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ
+                                              / r["wall_s"] for r in recs],
+                        "peak_mem_gb": torch.cuda.max_memory_allocated()
+                        / 2**30}
+            if key == "train":
+                # one more step (a fresh AdamW state), counted
+                with CollectiveCounter(timed=True) as cc:
+                    params = _train_steps(cfg, params, batches[:1], mesh)[0]
+                res[key]["step_collectives"] = cc.summary()
+            else:
+                got = _host_params(params)      # every rank gathers
+                if rank == 0:
+                    want = torch.load(os.path.join(workdir,
+                                                   "ref_params.pt"))
+                    res[key]["max_param_diff"] = max(
+                        float((got[p] - x).abs().max())
+                        for p, x in want.items())
+                del got
+            del params, batches
+            torch.cuda.empty_cache()
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        if rank == 0:
+            torch.save(keep, os.path.join(workdir, "mesh.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_lm_mesh_cards():
+    """``--lm-mesh``: Mixtral-8x7B whole served and Mamba2-2.7B trained
+    over one NCCL rank per card of a four-card machine, held to the
+    one-card runs on card 0 (module docstring). Returns the launches
+    summed over the ranks."""
+    import tempfile
+    import torch
+    from repro_torch.configs.base import get_config
+    world = torch.cuda.device_count()
+    if world < LM_MESH_RANKS:
+        die(f"--lm-mesh needs {LM_MESH_RANKS} cards, found {world}")
+    world = LM_MESH_RANKS
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        walls = _lm_mesh_refs(workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t0
+        errs = [os.path.join(workdir, f"rank{r}.err") for r in range(world)]
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(world):
+                with open(errs[r], "w") as err:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--lm-rank", str(r), str(world), workdir], cwd=ROOT,
+                        stdout=subprocess.DEVNULL, stderr=err))
+            for proc in procs:
+                proc.wait(timeout=2 * LM_MESH_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        failed = [(r, p.returncode) for r, p in enumerate(procs)
+                  if p.returncode != 0]
+        if failed:
+            tails = {r: open(errs[r]).read()[-3000:] for r, _ in failed}
+            die(f"lm_mesh: ranks exited {failed}: {tails}")
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        ref = torch.load(os.path.join(workdir, "ref.pt"))
+        mesh = torch.load(os.path.join(workdir, "mesh.pt"))
+    cards = RUN.get("cards", [])[:world]
+    for rk in ranks:
+        emit({"phase": "lm_mesh_rank", "ranks": world,
+              "card": cards[rk["rank"]] if rk["rank"] < len(cards)
+              else RUN.get("card"), **rk})
+    flips, _ = _flips(_probe_layers(*ref["fp32"][1:], MOE_FP32_LAYERS),
+                      _probe_layers(*mesh["fp32"][1:], MOE_FP32_LAYERS))
+    gates = {
+        "moe_fp32_prefill": _rel_logit_diff(mesh["fp32"][0], ref["fp32"][0]),
+        "moe_fp32_flips": flips,
+        "moe_bf16_16_prefill": _rel_logit_diff(mesh["bf16"][0],
+                                               ref["bf16"][0]),
+        "moe_bf16_16_decode": _rel_logit_diff(mesh["bf16"][1],
+                                              ref["bf16"][1]),
+        "moe_32_on_vs_off": ranks[0]["moe"]["kernels_on_vs_off"],
+        "train_losses": [r["train"]["steps"] for r in ranks],
+        "train_losses_one_card": ref["train"],
+        "train_fp32_losses": ranks[0]["train_fp32"]["steps"],
+        "train_fp32_losses_one_card": ref["train_fp32"],
+        "train_fp32_max_param_diff": ranks[0]["train_fp32"][
+            "max_param_diff"]}
+    emit({"phase": "lm_mesh_cards", "ranks": world, "cards": cards,
+          "one_card": walls, "refs_s": refs_s, "ranks_s": ranks_s,
+          "limits": {"moe_bf16": BF16_LOGIT_TOL["moe"],
+                     "moe_fp32": FP32_LOGIT_TOL,
+                     "flip_margin": FP32_FLIP_MARGIN,
+                     "train_rtol": TRAIN_LOSS_RTOL,
+                     "train_fp32_loss": MESH_FP32_LOSS_TOL,
+                     "train_fp32_param": MESH_FP32_PARAM_TOL}, **gates})
+    moe_bad = (gates["moe_fp32_prefill"] > FP32_LOGIT_TOL
+               or (flips["first_layer_max_margin"] or 0) > FP32_FLIP_MARGIN
+               or max(gates["moe_bf16_16_prefill"],
+                      gates["moe_bf16_16_decode"],
+                      *gates["moe_32_on_vs_off"].values())
+               > BF16_LOGIT_TOL["moe"])
+    if moe_bad:
+        die("lm_mesh: Mixtral on the mesh disagrees (see the lm_mesh_cards "
+            "line)")
+    if not all(_losses_close(r["train"]["steps"], ref["train"],
+                             TRAIN_LOSS_RTOL) for r in ranks) or \
+            not _losses_close(gates["train_fp32_losses"], ref["train_fp32"],
+                              atol=MESH_FP32_LOSS_TOL) or \
+            gates["train_fp32_max_param_diff"] > MESH_FP32_PARAM_TOL:
+        die("lm_mesh: Mamba2 training on the mesh disagrees (see the "
+            "lm_mesh_cards line)")
+    layers = get_config(MOE_ARCH).n_layers
+    for rk in ranks:
+        if rk["moe"]["launches"]["flash_attention"] != layers or \
+                rk["train"]["launches"]["fuse"] <= 0:
+            die(f"lm_mesh: rank {rk['rank']} launched {rk['moe']['launches']}"
+                f", {rk['train']['launches']}")
+    return {k: sum(rk["moe"]["launches"][k] + rk["train"]["launches"][k]
+                   for rk in ranks) for k in ranks[0]["moe"]["launches"]}
 
 
 def phase_clip_path(cfg, params, d):
@@ -2791,6 +3328,20 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})
         return
+    if "--lm-rank" in sys.argv[1:]:
+        i = sys.argv.index("--lm-rank")
+        _lm_mesh_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]),
+                      sys.argv[i + 3])
+        return
+    if "--lm-mesh" in sys.argv[1:]:
+        phase_environment()
+        phase_build()
+        launches = timed_phase("lm_mesh_cards", phase_lm_mesh_cards)
+        emit({"lm_mesh_cards_launches": launches})
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return
     if "--ncu-target" in sys.argv[1:]:
         from repro_torch.configs.base import get_config
         lm, ssm = get_config(SERVE_ARCH), get_config(SSM_ARCH)
@@ -2899,6 +3450,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches["dense_train_path"] = phase_dense_train_path(SERVE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["lm_mesh_path"] = timed_phase("lm_mesh_path",
+                                           phase_lm_mesh_path)
     # each kernel's launches come from the path that carries it
     carried_by = {"fuse": "main_path", "aggregate": "main_path",
                   "aggregate_numerator": "fleet_mesh_path",
@@ -2909,7 +3464,8 @@ def main() -> None:
                 vlm_serve_path=launches["vlm_serve_path"],
                 audio_serve_path=launches["audio_serve_path"],
                 moe_train_path=train_launches["moe_train_path"],
-                audio_train_path=train_launches["audio_train_path"])
+                audio_train_path=train_launches["audio_train_path"],
+                lm_mesh_path=launches["lm_mesh_path"])
     for row in rows:
         row["path"] = carried_by[row["name"]]
         row["launches"] = launches[row["path"]][row["name"]]
@@ -2928,6 +3484,7 @@ def main() -> None:
     emit({"baseline_path_launches": baseline})
     emit({"scenario_path_launches": scenario})
     emit({"train_path_launches": train_launches})
+    emit({"lm_mesh_path_launches": launches["lm_mesh_path"]})
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     # hand the card's memory back before the result, so that the exit
     # after it has little left to tear down

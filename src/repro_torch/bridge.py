@@ -66,19 +66,26 @@ def _check_like(name: str, ref, new) -> None:
 
 
 def to_model_params(cfg, params: Dict[str, Any], device=None,
-                    dtype: torch.dtype = None) -> Dict[str, Any]:
+                    dtype: torch.dtype = None, *, mesh=None) -> Dict[str, Any]:
     """A reference model-params tree as numpy arrays -> the port's model
     params on ``device`` (None: the card, see
     ``repro_torch.device.resolve_device``), in ``dtype`` (default: the
     config's). The tree
     must have exactly the keys and shapes of the port's ``init_params``
     for ``cfg``; every leaf is copied. The counterpart of
-    ``install_weights`` for a bare model, not an ``Engine``."""
+    ``install_weights`` for a bare model, not an ``Engine``. With
+    ``mesh`` (an LM mesh) each rank keeps its shards, placed by
+    ``launch.sharding.param_pspecs`` as ``init_params(..., mesh=)``
+    places them."""
     device = resolve_device(device)
     like = init_params(cfg, None, device="meta")
     _check_like("params", like, params)
     dtype = dtype or torch_dtype(cfg)
-    return tree_map(lambda x: _leaf_to_torch(x, device, dtype), params)
+    out = tree_map(lambda x: _leaf_to_torch(x, device, dtype), params)
+    if mesh is None:
+        return out
+    from repro_torch.launch import sharding as SH
+    return SH.distribute_tree(out, SH.param_pspecs(cfg, like, mesh), mesh)
 
 
 def install_weights(target, params: Dict[str, Any],

@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aggregation as AGG
 from repro_torch.core import supernet as SN
+from repro_torch.launch import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.tree import (grad_leaves, tree_flatten_with_path,
                               tree_leaves, tree_map, tree_unflatten)
@@ -111,8 +112,21 @@ def clip_by_global_l2(tree, tau: float):
 
 def fuse_gradients(g_client, g_server, w_client, *, use_pallas: bool = False):
     """Eq. (4): per-leaf fused encoder gradient; ``use_pallas`` routes it
-    through the hand-written ``fuse`` kernel (the reference's flag name)."""
+    through the hand-written ``fuse`` kernel (the reference's flag name).
+    Sharded gradients (DTensors) reach the kernel through ``local_map``,
+    each rank's shards of a leaf in one launch."""
     w_c = w_client.float()
+    if use_pallas and SH.is_dtensor(w_c):
+        from torch.distributed.tensor.experimental import local_map
+        from repro_torch.kernels.tpgf_fusion.ops import fuse_leaf
+
+        def fuse(a, b):
+            pls = list(a.placements)
+            return local_map(fuse_leaf, out_placements=pls,
+                             in_placements=(pls, list(b.placements),
+                                            list(w_c.placements)),
+                             device_mesh=a.device_mesh)(a, b, w_c)
+        return tree_map(fuse, g_client, g_server)
     if use_pallas:
         from repro_torch.kernels.tpgf_fusion.ops import fuse_tree
         return fuse_tree(g_client, g_server, w_c)
@@ -196,6 +210,14 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
     g_client_local = tree_unflatten(c_paths, g_client_local)
     g_client_server = tree_unflatten(c_paths, g_client_server)
     g_server_params = tree_unflatten(s_paths, g_server)
+    g_local = tree_unflatten(l_paths, g_local)
+    if SH.is_dtensor(z):
+        # the data ranks' partial sums, reduce-scattered (or all-reduced)
+        # to each parameter's own placements
+        g_client_local = SH.match_placements(g_client_local, client_p)
+        g_client_server = SH.match_placements(g_client_server, client_p)
+        g_server_params = SH.match_placements(g_server_params, server_p)
+        g_local = SH.match_placements(g_local, local_p)
 
     # ---- Phase 3: clip + loss-weighted fusion (Eqs. 3-4)
     g_client_local, _ = clip_by_global_l2(g_client_local, cfg.tpgf_clip)
@@ -208,8 +230,7 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
         server_available, w_c, g_server_params, g_client, g_client_local)
     if isinstance(aux_prefix, torch.Tensor):
         aux_prefix = aux_prefix.detach()
-    return TPGFSplitOut(g_client, g_server_params,
-                        tree_unflatten(l_paths, g_local),
+    return TPGFSplitOut(g_client, g_server_params, g_local,
                         loss_client, loss_server, w_c, aux_prefix)
 
 

@@ -10,14 +10,27 @@ whose gradients accumulate in fp32.
 cache-building forward and the single-token decode. Both run without
 autograd: serving needs no graph, and the serving kernels have no
 backward.
+
+Every step takes sharded trees too: parameters, moments and caches of
+DTensors placed by ``launch.sharding``'s LM rules run the sharded path of
+``models/sharded.py``, and a plain batch is placed by ``batch_pspecs``
+first.
+
+``batch_specs`` / ``params_specs`` / ``cache_specs`` / ``token_specs`` /
+``input_specs`` are the dry-run's abstract inputs: tensors on the
+``meta`` device, shapes and dtypes with no allocation.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Tuple
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import tpgf as T
+from repro_torch.launch.sharding import is_dtensor
 from repro_torch.models import decode as D
+from repro_torch.models import model as M
 from repro_torch.models.model import layer_role
 from repro_torch.optim import adamw
 from repro_torch.tree import (tree_flatten_with_path, tree_get, tree_map,
@@ -25,9 +38,14 @@ from repro_torch.tree import (tree_flatten_with_path, tree_get, tree_map,
 
 
 def _microbatches(batch, mb: int):
-    """``batch`` cut into ``mb`` equal slices along its leading axis."""
+    """``batch`` cut into ``mb`` equal slices along its leading axis. A
+    batch placed over the data axes is gathered first: a microbatch's
+    rows lie on several ranks, and the sharded step places each
+    microbatch's rows over the data axes again."""
     out = [dict() for _ in range(mb)]
     for k, v in batch.items():
+        if is_dtensor(v):
+            v = v.full_tensor()
         if v.shape[0] % mb:
             raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a "
                              f"multiple of microbatches={mb}")
@@ -102,16 +120,16 @@ def make_train_step(cfg: ModelConfig, opt=None):
             return out.grads, {"loss_client": out.loss_client,
                                "loss_server": out.loss_server,
                                "w_client": out.w_client,
-                               "aux": torch.as_tensor(
+                               "aux": out.aux if is_dtensor(out.aux)
+                               else torch.as_tensor(
                                    out.aux, dtype=torch.float32,
                                    device=out.loss_client.device)}
         acc, lc, ls, wc = None, [], [], []
         for mbatch in _microbatches(batch, mb):
             out = T.tpgf_grads(cfg, params, mbatch, d)
             if acc is None:
-                acc = tree_map(lambda g: torch.zeros(
-                    g.shape, dtype=torch.float32, device=g.device),
-                    out.grads)
+                acc = tree_map(lambda g: torch.zeros_like(
+                    g, dtype=torch.float32), out.grads)
             tree_map(lambda a, g: a.add_(g.float() / mb), acc, out.grads)
             lc.append(out.loss_client)
             ls.append(out.loss_server)
@@ -128,6 +146,9 @@ def make_train_step(cfg: ModelConfig, opt=None):
     def train_step(params, opt_state, batch):
         grads, metrics = compute_grads(params, batch)
         params, opt_state = apply_in_place(opt, grads, opt_state, params)
+        # a sharded step's metrics are replicated DTensors: the rank's copy
+        metrics = {k: v.to_local() if is_dtensor(v) else v
+                   for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return train_step, opt
@@ -147,3 +168,52 @@ def make_serve_step(cfg: ModelConfig):
         return D.decode_step(cfg, params, cache, token)
 
     return serve_step
+
+
+# ------------------------------------------------------------- input specs
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """Stand-ins for every model input of ``shape`` (no allocation)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = M.torch_dtype(cfg)
+    i32 = torch.int32
+    if cfg.family == "vit":
+        return {"images": _meta((B, cfg.image_size, cfg.image_size, 3), dt),
+                "label": _meta((B,), i32)}
+    if cfg.is_encdec:
+        return {"frames": _meta((B, cfg.enc_frames, cfg.d_model), dt),
+                "tokens": _meta((B, S), i32), "labels": _meta((B, S), i32)}
+    if cfg.family == "vlm":
+        return {"patches": _meta((B, cfg.n_patches, cfg.d_model), dt),
+                "tokens": _meta((B, S - cfg.n_patches), i32),
+                "labels": _meta((B, S - cfg.n_patches), i32)}
+    return {"tokens": _meta((B, S), i32), "labels": _meta((B, S), i32)}
+
+
+def params_specs(cfg: ModelConfig):
+    return M.init_params(cfg, None, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, shape: InputShape):
+    return D.init_cache(cfg, shape.global_batch, shape.seq_len,
+                        device="meta")
+
+
+def token_specs(cfg: ModelConfig, shape: InputShape):
+    return _meta((shape.global_batch, 1), torch.int32)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Tuple:
+    """Abstract args of the step that ``shape.kind`` exercises."""
+    if shape.kind == "train":
+        _, opt = make_train_step(cfg.replace(use_pallas=False))
+        p = params_specs(cfg)
+        return (p, opt.init(p), batch_specs(cfg, shape))
+    if shape.kind == "prefill":
+        return (params_specs(cfg), batch_specs(cfg, shape))
+    return (params_specs(cfg), cache_specs(cfg, shape),
+            token_specs(cfg, shape))

@@ -1,6 +1,7 @@
 """End-to-end SuperSFL training launcher: the production TPGF train step
 (``launch.steps.make_train_step``) on synthetic Markov-chain LM data
-(``data.synthetic.synthetic_lm_batches``), on one device.
+(``data.synthetic.synthetic_lm_batches``), on one device or, with
+``--mesh``, sharded over the ranks of a ``("data", "model")`` mesh.
 
 Run on the card (full width, random weights from a seed):
 
@@ -18,7 +19,22 @@ the reduced config in fp32 and the full one in its own dtype, with
 ``elapsed_s``, ``loss_client``, ``loss_server``, ``w_client``, ``aux``),
 and ``--ckpt PATH`` writes the final params as ``PATH.npz`` +
 ``PATH.json`` in the reference's checkpoint format (bf16 leaves
-included). ``--mesh`` (the reference's production mesh) is not ported.
+included).
+
+``--mesh`` alone builds the production mesh (16, 16), as the
+reference's launcher does, and raises below 256 ranks; ``--mesh DxM``
+builds ``make_test_mesh((D, M))`` over the world. Start the ranks with
+``torchrun`` (one a card; NCCL on the cards, gloo with ``--device
+cpu``); the process group comes from torchrun's environment:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch mamba2_2_7b --mesh 4x1 --steps 4 --batch 8 --seq 512
+
+Each rank draws the same seeded init and keeps its shards
+(``init_params(..., mesh=)``); the moments take the parameters'
+placements, the batch is placed by ``batch_pspecs``. Only rank 0 prints
+and writes ``--ckpt`` (the shards gathered first, the same format).
+``--mesh 1x1`` runs in one process, bit for bit the meshless run.
 """
 from __future__ import annotations
 
@@ -32,6 +48,7 @@ import torch
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import base
 from repro_torch.data.synthetic import synthetic_lm_batches
+from repro_torch.launch import sharding as SH
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -94,38 +111,70 @@ def main(argv=None):
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    ap.add_argument("--mesh", action="store_true",
-                    help="the reference's production mesh (not ported)")
+    ap.add_argument("--mesh", nargs="?", const="production", default=None,
+                    help="shard over a mesh: alone the production mesh "
+                         "(256 ranks), or DxM for make_test_mesh((D, M))")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-device training is ROADMAP queue 1, \"Fleet "
-            "sharding and multi-device\"")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to run on "
                            "the CPU")
+    mesh, own_group = (None, False) if args.mesh is None else \
+        launch_mesh(args.mesh, device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    rank0 = mesh is None or mesh.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
 
     cfg = train_config(args.arch, args.reduced)
     step_fn, opt = make_train_step(cfg, adamw(args.lr))
     gen = torch.Generator(device=device).manual_seed(0)
-    params = M.init_params(cfg, gen, device=device)
+    params = M.init_params(cfg, gen, device=device, mesh=mesh)
     opt_state = opt.init(params)
-    print(f"arch={cfg.name} params={M.param_count(params) / 1e6:.1f}M "
-          f"split_depth={cfg.resolved_split_depth}/{cfg.split_stack_len} "
-          f"device={device}")
-    params, opt_state, history = train(
-        step_fn, params, opt_state,
-        device_batches(cfg, args.seq, args.batch, args.steps, device),
-        log_every=args.log_every)
+    say(f"arch={cfg.name} params={M.param_count(params) / 1e6:.1f}M "
+        f"split_depth={cfg.resolved_split_depth}/{cfg.split_stack_len} "
+        f"device={device}" + ("" if mesh is None else f" mesh={mesh}"))
+    batches = device_batches(cfg, args.seq, args.batch, args.steps, device)
+    if mesh is not None:
+        batches = (SH.distribute_tree(b, SH.batch_pspecs(cfg, None, b, mesh),
+                                      mesh) for b in batches)
+    params, opt_state, history = train(step_fn, params, opt_state, batches,
+                                       log_every=args.log_every, out=say)
     if args.ckpt:
-        save_checkpoint(args.ckpt, params, step=args.steps,
-                        meta={"arch": cfg.name})
-        print(f"saved checkpoint to {args.ckpt}.npz")
+        whole = SH.gather_tree(params)
+        if rank0:
+            save_checkpoint(args.ckpt, whole, step=args.steps,
+                            meta={"arch": cfg.name})
+        say(f"saved checkpoint to {args.ckpt}.npz")
     l0, l1 = history[0]["loss_server"], history[-1]["loss_server"]
-    print(f"loss_server {l0:.3f} -> {l1:.3f} "
-          f"({'LEARNING' if l1 < l0 else 'NOT LEARNING'})")
+    say(f"loss_server {l0:.3f} -> {l1:.3f} "
+        f"({'LEARNING' if l1 < l0 else 'NOT LEARNING'})")
+    if own_group:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return history
+
+
+def launch_mesh(arg: str, device):
+    """``--mesh``'s mesh and whether this call started the process group:
+    from torchrun's environment when it set one (NCCL on the cards, gloo
+    on the CPU), else none (a one-rank mesh makes its own)."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    own = not dist.is_initialized()
+    if own and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device.type == "cuda" and dist.is_initialized() else device)
+    if arg == "production":
+        mesh = make_production_mesh(device=dev)
+    else:
+        mesh = make_test_mesh(tuple(int(n) for n in arg.lower().split("x")),
+                              device=dev)
+    return mesh, own
 
 
 if __name__ == "__main__":

@@ -29,6 +29,10 @@ W is the rolling window: ``cache_window`` gives the arch's sliding window
 A prompt longer than W keeps its last W positions, rolled so that each
 sits in its slot.
 
+Sharded parameters (``launch.sharding``'s LM rules) serve through
+``models/sharded.py``: the cache is placed by ``cache_pspecs``, and each
+rank writes its shards of it in place.
+
 Two deliberate departures from the reference, each held by
 ``tests/test_torch_decode.py``:
   (c) ``decode_step`` writes the new k, v and pos, and the new ssm_h and
@@ -50,6 +54,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import mesh_of
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import (_causal, _head_logits, _row,
@@ -116,6 +121,9 @@ def prefill(cfg: ModelConfig, params, batch, decode_budget: int = 0):
     ``frames``. Returns (logits [B, S, V], cache), S counting the patches.
     """
     _check_servable(cfg)
+    if mesh_of(params) is not None:
+        from repro_torch.models import sharded
+        return sharded.prefill(cfg, params, batch, decode_budget)
     h, pos = embed_inputs(cfg, params, batch)
     if cfg.is_encdec:
         enc_out, _ = encode(cfg, params, h)
@@ -176,6 +184,9 @@ def decode_step(cfg: ModelConfig, params, cache, token):
     (departure (d)). An audio decoder layer attends over its own cache
     without rope, then cross-attends to ``cross_k``/``cross_v``."""
     _check_servable(cfg)
+    if mesh_of(params) is not None:
+        from repro_torch.models import sharded
+        return sharded.decode_step(cfg, params, cache, token)
     role = "dec" if cfg.is_encdec else layer_role(cfg)
     B = token.shape[0]
     idx = int(cache["idx"])

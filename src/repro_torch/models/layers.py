@@ -41,10 +41,14 @@ def ones(shape, dtype):
 
 # --------------------------------------------------------------------- norms
 
-def rmsnorm(x, scale, eps: float = 1e-6):
-    """fp32 RMS norm; ``scale`` stores (scale - 1), as the reference."""
+def rmsnorm(x, scale, eps: float = 1e-6, var=None):
+    """fp32 RMS norm; ``scale`` stores (scale - 1), as the reference.
+    ``var`` (fp32, [..., 1]) is the mean square when the caller has it:
+    a tensor-parallel rank holds a slice of the normed dim and gets the
+    mean from every rank's sum of squares."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if var is None:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
 
@@ -291,6 +295,16 @@ def softmax_xent(logits, labels, *, valid=None, vocab: int = None):
     ``vocab`` masks the padded vocabulary columns (``padded_vocab``);
     ``valid`` (labels' shape) weights the positions, and the mean is over
     its sum (at least 1)."""
+    nll = softmax_nll(logits, labels, vocab=vocab)
+    if valid is None:
+        return nll.mean()
+    w = valid.float()
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def softmax_nll(logits, labels, *, vocab: int = None):
+    """The fp32 cross-entropy of each position, ``softmax_xent`` before
+    its mean."""
     logits = logits.float()
     if vocab is not None and vocab < logits.shape[-1]:
         neg = torch.full(logits.shape[:-1] + (logits.shape[-1] - vocab,),
@@ -298,8 +312,4 @@ def softmax_xent(logits, labels, *, valid=None, vocab: int = None):
         logits = torch.cat([logits[..., :vocab], neg], dim=-1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
-    if valid is None:
-        return nll.mean()
-    w = valid.float()
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    return logz - gold

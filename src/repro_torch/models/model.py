@@ -34,9 +34,13 @@ next-token cross-entropies over the unpadded vocabulary, weighted by
 of a forward that records a gradient is checkpointed (its activations are
 recomputed in the backward), the reference's ``jax.checkpoint`` of the
 scan body.
-The reference's ``_constrain_batch`` pins a sharding and is a no-op on one
-device; the port has no counterpart (sharding is ROADMAP queue 1, "Fleet
-sharding and multi-device").
+On a ``("data", "model")`` mesh (parameters placed by ``init_params(...,
+mesh=)`` or ``launch.sharding.distribute_tree``) the same surfaces run
+sharded: each function below hands a DTensor input to its counterpart in
+``models/sharded.py``, which runs this module's own code on each rank's
+local shards. The reference's ``_constrain_batch`` pins the batch axis
+inside its scans; the port's activations keep their rows over the data
+axes from the embedding on, so it has no separate step.
 
 Public surface (the JAX module's names):
   init_params(cfg, gen, device)
@@ -62,10 +66,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.launch import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten_with_path, tree_get, tree_leaves,
+                              tree_map, tree_rebuild, tree_unflatten)
 
 Params = Dict[str, Any]
 
@@ -141,18 +147,27 @@ def _layer_params(cfg: ModelConfig, gen: torch.Generator, dtype,
 
 
 def _stack(cfg: ModelConfig, gen: torch.Generator, n: int, dtype,
-           role: str) -> Params:
+           role: str, keep=None) -> Params:
     """``n`` layers of ``role`` drawn in turn, each copied into its row of
     a stacked tree allocated once: the stack never exists twice
-    (Mixtral-8x7B's 16 layers are 47 GB in bf16)."""
+    (Mixtral-8x7B's 16 layers are 47 GB in bf16). ``keep(path, x)`` (a
+    mesh's init) cuts each drawn row leaf to the part this rank keeps."""
+    def rows(layer):
+        return {path: (x if keep is None else keep(path, x))
+                for path, x in tree_flatten_with_path(layer)}
+
     layer = _layer_params(cfg, gen, dtype, role)
-    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), layer)
+    kept = rows(layer)
+    out = {path: x.new_empty((n,) + tuple(x.shape))
+           for path, x in kept.items()}
     for i in range(n):
         if i:
             layer = _layer_params(cfg, gen, dtype, role)
-        tree_map(lambda row, x: row[i].copy_(x), out, layer)
-        del layer
-    return out
+            kept = rows(layer)
+        for path, x in kept.items():
+            out[path][i].copy_(x)
+        del layer, kept
+    return tree_unflatten(list(out), list(out.values()))
 
 
 def _local_head(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -171,7 +186,7 @@ def init_local_head(cfg: ModelConfig, gen: torch.Generator,
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device=None) -> Params:
+                device=None, *, mesh=None) -> Params:
     """The reference's shapes, dtypes and distributions, drawn from a
     ``torch.Generator`` on its own device (``jax.random`` bits cannot be
     reproduced in torch; tests carry the reference's weights across with
@@ -184,19 +199,38 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     the reference: SuperSFL puts the embedding on the client and the head
     on the server. The audio decoder's head stays tied to ``embed``
     (both live on the server, the split stack being the encoder);
-    ``dec_pos`` has the reference's 32,768 rows."""
+    ``dec_pos`` has the reference's 32,768 rows.
+
+    With ``mesh`` (an LM mesh of ``launch.mesh``) every rank draws the
+    same stream, leaf by leaf and layer row by layer row, and keeps only
+    its shard of each as ``launch.sharding.param_pspecs`` places it: the
+    parameters are DTensors with the values of the meshless init of the
+    same seed, and a rank's peak is its shards plus one layer row."""
     check_family(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
     dm = cfg.d_model
     p: Params = {}
+    keep = {}
+    if mesh is not None:
+        shapes = init_params(cfg, None, device="meta")
+        specs = SH.param_pspecs(cfg, shapes, mesh)
+
+        def keep_in(stack):
+            def cut(path, x):
+                pls = SH.placements(tree_get(specs[stack], path)[1:], mesh)
+                return SH.local_slice(x, mesh, pls).clone()
+            return cut
+        keep = {k: keep_in(k) for k in ("layers", "enc_layers",
+                                        "dec_layers")}
     if cfg.family == "vit":
         pdim = cfg.patch_size * cfg.patch_size * 3
         n_patches = (cfg.image_size // cfg.patch_size) ** 2
         p["patch_embed"] = L.dense_init(gen, pdim, dm, dtype)
         p["patch_bias"] = L.zeros((dm,), dtype)
         p["pos_embed"] = L.normal(gen, (n_patches, dm), dtype)
-        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype, "enc")
+        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype, "enc",
+                             keep.get("layers"))
         p["head"] = L.dense_init(gen, dm, cfg.n_classes, dtype)
         p["head_bias"] = L.zeros((cfg.n_classes,), dtype)
         p.update(_local_head(cfg, gen))
@@ -204,8 +238,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         p["frame_proj"] = L.dense_init(gen, dm, dm, dtype)
         p["embed"] = L.normal(gen, (cfg.padded_vocab, dm), dtype)
         p["dec_pos"] = L.normal(gen, (DEC_POS_ROWS, dm), dtype)
-        p["enc_layers"] = _stack(cfg, gen, cfg.n_enc_layers, dtype, "enc")
-        p["dec_layers"] = _stack(cfg, gen, cfg.n_layers, dtype, "dec")
+        p["enc_layers"] = _stack(cfg, gen, cfg.n_enc_layers, dtype, "enc",
+                                 keep.get("enc_layers"))
+        p["dec_layers"] = _stack(cfg, gen, cfg.n_layers, dtype, "dec",
+                                 keep.get("dec_layers"))
         p["enc_norm"] = L.norm_params(cfg, dm, dtype)
         p["dec_norm"] = L.norm_params(cfg, dm, dtype)
         p["local_head"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
@@ -213,11 +249,24 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         p["embed"] = L.normal(gen, (cfg.padded_vocab, dm), dtype)
         if cfg.family == "vlm":
             p["vision_proj"] = L.dense_init(gen, dm, dm, dtype)
-        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype, layer_role(cfg))
+        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype, layer_role(cfg),
+                             keep.get("layers"))
         p["final_norm"] = L.norm_params(cfg, dm, dtype)
         p["unembed"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
         p["local_head"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
-    return tree_map(lambda x: x.to(device), p)
+    if mesh is None:
+        return tree_map(lambda x: x.to(device), p)
+    out = {}
+    for path, x in tree_flatten_with_path(p):
+        spec = tree_get(specs, path)
+        x = x.to(device)
+        if path[0] in keep:      # the stacks: already this rank's shard
+            pls = SH.placements(spec, mesh)
+            shape = tuple(tree_get(shapes, path).shape)
+            out[path] = SH.as_dtensor(x, mesh, pls, shape)
+        else:
+            out[path] = SH.place(x, spec, mesh)
+    return tree_rebuild(p, out)
 
 
 def param_count(params: Params) -> int:
@@ -350,6 +399,10 @@ def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
     backward reaches the encoder), and every backward pass through it
     recomputes its forward, so TPGF's two backward passes through one
     prefix graph each recompute it."""
+    if SH.is_dtensor(h):
+        from repro_torch.models import sharded
+        return sharded.run_stack(cfg, stack, h, causal=causal, window=window,
+                                 emit=emit, role=role, enc_out=enc_out)
     role = role or layer_role(cfg)
     use_rope = role in ("dense", "moe", "hybrid")
     remat = cfg.remat and not emit and torch.is_grad_enabled()
@@ -408,8 +461,12 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch) -> Tuple[Any, Any]:
     ``@ frame_proj`` plus ``sinusoid``, the encoder's input; the other
     LM families: ``embed_tokens``, and for vlm a batch with ``patches``
     [B, n_patches, dm] puts ``patches @ vision_proj`` before the
-    tokens."""
+    tokens. Sharded parameters give (h, None): a sharded layer makes its
+    own positions."""
     check_family(cfg)
+    if SH.mesh_of(params) is not None:
+        from repro_torch.models import sharded
+        return sharded.embed_inputs(cfg, params, batch)
     if cfg.is_encdec:
         fp = params["frame_proj"]
         h = batch["frames"].to(fp.dtype) @ fp
@@ -436,6 +493,12 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch) -> Tuple[Any, Any]:
 
 
 def _head_logits(cfg: ModelConfig, params: Params, h):
+    if SH.is_dtensor(h):
+        from repro_torch.models import sharded
+        keys = (("head", "head_bias") if cfg.family == "vit" else
+                ("embed",) if cfg.is_encdec else ("unembed",))
+        return sharded.rows_call(cfg, _head_logits,
+                                 {k: params[k] for k in keys}, h)
     if cfg.family == "vit":
         pooled = h.mean(dim=1)
         return pooled @ params["head"] + params["head_bias"]
@@ -446,6 +509,9 @@ def _head_logits(cfg: ModelConfig, params: Params, h):
 
 def _norm(cfg: ModelConfig, p, h):
     """A stand-alone norm stored as {"scale"(, "bias")}."""
+    if SH.is_dtensor(h):
+        from repro_torch.models import sharded
+        return sharded.rows_call(cfg, _norm, p, h)
     return L.apply_norm(cfg, h, {f"attn_norm_{k}": v for k, v in p.items()},
                         "attn_norm")
 
@@ -473,7 +539,11 @@ def decode_tokens(cfg: ModelConfig, params: Params, tokens, enc_out,
     self-attention, cross-attention on ``enc_out``), before
     ``dec_norm``; run_stack's (h, aux) or, with ``emit``, (h, aux, ys)."""
     S = tokens.shape[1]
-    h = embed_tokens(cfg, params, tokens) + params["dec_pos"][:S][None]
+    if SH.is_dtensor(enc_out):
+        from repro_torch.models import sharded
+        h = sharded.embed_decoder(cfg, params, tokens)
+    else:
+        h = embed_tokens(cfg, params, tokens) + params["dec_pos"][:S][None]
     pos = torch.arange(S, device=h.device).expand(tokens.shape)
     return run_stack(cfg, params["dec_layers"], h, positions=pos,
                      causal=True, emit=emit, role="dec", enc_out=enc_out)
@@ -512,6 +582,11 @@ def local_logits(cfg: ModelConfig, params: Params, z):
     the tokens, audio the frames (one unigram distribution a sequence),
     the other LM families predict every position."""
     check_family(cfg)
+    if SH.is_dtensor(z):
+        from repro_torch.models import sharded
+        return sharded.rows_call(cfg, local_logits, {
+            k: params[k] for k in ("local_head", "local_head_bias")
+            if k in params}, z)
     if cfg.family == "vit":
         pooled = z.mean(dim=1)
         return pooled @ params["local_head"] + params["local_head_bias"]
@@ -529,6 +604,9 @@ def _label_fields(cfg: ModelConfig, batch):
 def _xent(cfg: ModelConfig, logits, batch):
     """The loss of ``logits`` against the batch's labels; vlm skips the
     ``n_patches`` image positions."""
+    if SH.is_dtensor(logits):
+        from repro_torch.models import sharded
+        return sharded.xent(cfg, logits, batch)
     labels, valid = _label_fields(cfg, batch)
     if cfg.family == "vit":
         return L.softmax_xent(logits, labels)
@@ -539,6 +617,9 @@ def _xent(cfg: ModelConfig, logits, batch):
 
 def local_loss(cfg: ModelConfig, params: Params, z, batch):
     logits = local_logits(cfg, params, z)
+    if SH.is_dtensor(logits):
+        from repro_torch.models import sharded
+        return sharded.xent(cfg, logits, batch, unigram=cfg.is_encdec)
     if cfg.is_encdec:
         # the unigram proxy: the pooled logits predict every label position
         logits = logits[:, None].expand(batch["labels"].shape

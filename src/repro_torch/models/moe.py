@@ -75,23 +75,26 @@ def expert_ffn(p, x):
     return torch.matmul(L.silu(g) * u, p["w_down"])
 
 
-def _moe_tokens_dense(cfg: ModelConfig, p, xt):
-    """Dense dispatch over a flat token chunk xt [T, dm] -> (y, f_e,
-    P_e)."""
-    E = cfg.n_experts
+def _route_dense(cfg: ModelConfig, p, xt):
+    """The dense dispatch's routing of a flat token chunk xt [T, dm]:
+    (combine [T, E] fp32, f_e, P_e)."""
     probs, topv, topi = route(cfg, p, xt)
-    onehot = F.one_hot(topi, E).float()                     # [T,k,E]
+    onehot = F.one_hot(topi, cfg.n_experts).float()          # [T,k,E]
     combine = torch.einsum("tke,tk->te", onehot, topv)
+    return combine, *_balance(onehot, probs)
+
+
+def _combine_dense(p, xt, combine):
+    """Every expert on every token of xt, the products masked and summed
+    by ``combine`` [T, E]."""
     y_e = expert_ffn(p, xt)                                 # [E,T,dm]
-    y = torch.einsum("etd,te->td", y_e, combine.to(xt.dtype))
-    return (y, *_balance(onehot, probs))
+    return torch.einsum("etd,te->td", y_e, combine.to(xt.dtype))
 
 
-def _moe_tokens_gather(cfg: ModelConfig, p, xt):
-    """Capacity-based top-k gather dispatch over xt [T, dm] -> (y, f_e,
-    P_e): each expert's top-``cap`` tokens by gate weight, the products
-    added back with ``index_add``; a pick at gate 0 (a token the router
-    did not send there) adds 0."""
+def _route_gather(cfg: ModelConfig, p, xt):
+    """The gather dispatch's routing of xt [T, dm]: each expert's
+    top-``cap`` tokens by gate weight, (gate values [E, cap] fp32, their
+    token indices [E, cap]), f_e, P_e."""
     E, k = cfg.n_experts, cfg.top_k
     T = xt.shape[0]
     cap = min(max(int(cfg.moe_capacity_factor * T * k / E), 1), T)
@@ -99,12 +102,58 @@ def _moe_tokens_gather(cfg: ModelConfig, p, xt):
     onehot = F.one_hot(topi, E).float()
     gate = torch.einsum("tke,tk->te", onehot, topv)
     gval, gidx = top_k(gate.T, cap)                         # [E,cap]
+    return torch.stack([gval, gidx.to(gval.dtype)]), *_balance(onehot,
+                                                               probs)
+
+
+def _combine_gather(p, xt, routed):
+    """Each expert on its picked tokens, the products added back with
+    ``index_add``; a pick at gate 0 (a token the router did not send
+    there) adds 0."""
+    gval, gidx = routed[0], routed[1].long()
+    E, cap = gval.shape
     sel = xt[gidx.reshape(-1)].reshape(E, cap, -1)
     y_e = expert_ffn(p, sel)                                # [E,cap,dm]
     w_e = torch.where(gval > 0, gval, torch.zeros_like(gval)).to(xt.dtype)
-    y = torch.zeros_like(xt).index_add(
+    return torch.zeros_like(xt).index_add(
         0, gidx.reshape(-1), (y_e * w_e[..., None]).reshape(E * cap, -1))
-    return (y, *_balance(onehot, probs))
+
+
+def _chunks(xt):
+    """xt [T, dm] in chunks of ``MOE_TOKEN_CHUNK`` when T is a larger
+    multiple of it, else whole, as the reference's scan takes them."""
+    c = min(MOE_TOKEN_CHUNK, xt.shape[0])
+    if xt.shape[0] % c or xt.shape[0] == c:
+        return [xt]
+    return list(xt.split(c))
+
+
+def moe_route(cfg: ModelConfig, p, xt):
+    """The router over the flat tokens xt [T, dm], chunk by chunk: (each
+    chunk's routing stacked on a leading axis, f_e, P_e); f_e and P_e are
+    averaged over the chunks."""
+    fn = _route_gather if cfg.moe_dispatch == "gather" else _route_dense
+    parts = [fn(cfg, p, xk) for xk in _chunks(xt)]
+    if len(parts) == 1:
+        routed, f_e, P_e = parts[0]
+        return routed[None], f_e, P_e
+    routed, f_es, P_es = zip(*parts)
+    return (torch.stack(routed), torch.stack(f_es).mean(dim=0),
+            torch.stack(P_es).mean(dim=0))
+
+
+def moe_combine(cfg: ModelConfig, p, xt, routed):
+    """The experts over xt [T, dm] by ``moe_route``'s routing -> y [T,
+    dm]. Linear in the expert weights' d_ff slices: a tensor-parallel
+    rank's d_ff slice gives its share of the sum."""
+    fn = _combine_gather if cfg.moe_dispatch == "gather" else _combine_dense
+    ys = [fn(p, xk, r) for xk, r in zip(_chunks(xt), routed)]
+    return ys[0] if len(ys) == 1 else torch.cat(ys)
+
+
+def moe_aux(cfg: ModelConfig, f_e, P_e):
+    """The Switch load-balance term E·Σ f_e·P_e / k, fp32."""
+    return cfg.n_experts * torch.sum(f_e * P_e) / cfg.top_k
 
 
 def moe_apply(cfg: ModelConfig, p, x):
@@ -114,20 +163,9 @@ def moe_apply(cfg: ModelConfig, p, x):
     is a larger multiple of it (f_e and P_e then averaged over the
     chunks), else in one pass, as the reference's scan does: the expert
     intermediate is [E, chunk, d_ff], not [E, T, d_ff]. aux is the
-    Switch load-balance term E·Σ f_e·P_e / k, fp32."""
+    Switch load-balance term, fp32."""
     B, S, dm = x.shape
-    E = cfg.n_experts
-    T = B * S
-    xt = x.reshape(T, dm)
-    c = min(MOE_TOKEN_CHUNK, T)
-    fn = (_moe_tokens_gather if cfg.moe_dispatch == "gather"
-          else _moe_tokens_dense)
-    if T % c or T == c:
-        y, f_e, P_e = fn(cfg, p, xt)
-    else:
-        ys, f_es, P_es = zip(*(fn(cfg, p, xk) for xk in xt.split(c)))
-        y = torch.cat(ys)
-        f_e = torch.stack(f_es).mean(dim=0)
-        P_e = torch.stack(P_es).mean(dim=0)
-    aux = E * torch.sum(f_e * P_e) / cfg.top_k
-    return y.reshape(B, S, dm), aux
+    xt = x.reshape(B * S, dm)
+    routed, f_e, P_e = moe_route(cfg, p, xt)
+    y = moe_combine(cfg, p, xt, routed)
+    return y.reshape(B, S, dm), moe_aux(cfg, f_e, P_e)

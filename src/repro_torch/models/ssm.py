@@ -75,7 +75,28 @@ def ssm_apply(cfg: ModelConfig, p, x_in, *, chunk: int = DEFAULT_CHUNK,
     """Full Mamba2 mixer on [B,S,dm] -> [B,S,dm] (the prefill path); with
     ``return_state`` also the final state h [B,nh,hd,st] (fp32) and the
     conv tail [B,k-1,d_inner] for the cache."""
-    nh, hd = cfg.ssm_n_heads, cfg.ssm_head_dim
+    y, z, h_final, xs_raw = ssm_mix(cfg, p, x_in, chunk=chunk)
+    out = ssm_out(p, y, z)
+    if return_state:
+        return out, h_final, conv_tail(cfg, xs_raw)
+    return out
+
+
+def conv_tail(cfg: ModelConfig, xs_raw):
+    """The last k-1 pre-conv inputs [B,k-1,d_inner]: the decode cache's
+    conv window."""
+    return xs_raw[:, xs_raw.shape[1] - (cfg.ssm_conv_dim - 1):, :]
+
+
+def ssm_mix(cfg: ModelConfig, p, x_in, *, chunk: int = DEFAULT_CHUNK,
+            n_heads: int = None):
+    """The mixer up to its gated norm: (y [B,S,nh·hd] in the input dtype,
+    the gate z, the final state h [B,nh,hd,st] fp32, the pre-conv input
+    [B,S,d_inner]). ``n_heads`` (default: the config's) is the heads of
+    ``p``: a tensor-parallel rank's slice of them, with ``w_x``, ``w_z``,
+    ``conv_*``, ``w_dt``, ``dt_bias``, ``A_log`` and ``D`` cut to it."""
+    nh = cfg.ssm_n_heads if n_heads is None else n_heads
+    hd = cfg.ssm_head_dim
     xs_raw = x_in @ p["w_x"]
     z = x_in @ p["w_z"]
     xs = L.silu(causal_conv(xs_raw, p["conv_w"], p["conv_b"]))
@@ -94,14 +115,15 @@ def ssm_apply(cfg: ModelConfig, p, x_in, *, chunk: int = DEFAULT_CHUNK,
     else:
         y, h_final = ssd_chunked(*scan_in[:5], chunk=chunk)
         y = y + xh.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(Bsz, S, nh * hd).to(x_in.dtype)
-    y = L.rmsnorm(y, p["gate_norm_scale"]) * L.silu(z)
-    out = y @ p["w_out"]
-    if return_state:
-        k = cfg.ssm_conv_dim
-        conv_tail = xs_raw[:, S - (k - 1):, :]
-        return out, h_final, conv_tail
-    return out
+    return y.reshape(Bsz, S, nh * hd).to(x_in.dtype), z, h_final, xs_raw
+
+
+def ssm_out(p, y, z, var=None):
+    """The mixer after ``ssm_mix``: the gated ``rmsnorm`` of y, then
+    ``w_out`` (``var``: the mean square of y over the whole d_inner, for a
+    rank that holds a slice of it)."""
+    y = L.rmsnorm(y, p["gate_norm_scale"], var=var) * L.silu(z)
+    return y @ p["w_out"]
 
 
 def ssm_decode_init(cfg: ModelConfig, batch: int, dtype, device):
@@ -117,7 +139,15 @@ def ssm_decode_init(cfg: ModelConfig, batch: int, dtype, device):
 def ssm_decode_step(cfg: ModelConfig, p, x_in, state):
     """x_in [B,1,dm]; state as ``ssm_decode_init`` makes it. Returns
     (y [B,1,dm], the new state); ``state`` is not written."""
-    nh, hd = cfg.ssm_n_heads, cfg.ssm_head_dim
+    y, z, new = ssm_decode_mix(cfg, p, x_in, state)
+    return ssm_out(p, y, z)[:, None, :], new
+
+
+def ssm_decode_mix(cfg: ModelConfig, p, x_in, state, n_heads: int = None):
+    """``ssm_decode_step`` up to its gated norm: (y [B,nh·hd], the gate z
+    [B,d_inner], the new state); ``n_heads`` as in ``ssm_mix``."""
+    nh = cfg.ssm_n_heads if n_heads is None else n_heads
+    hd = cfg.ssm_head_dim
     x = x_in[:, 0, :]
     xs = x @ p["w_x"]                                # [B,din]
     z = x @ p["w_z"]
@@ -136,6 +166,4 @@ def ssm_decode_step(cfg: ModelConfig, p, x_in, state):
     y = torch.einsum("bs,bhds->bhd", C, h) + \
         xh * p["D"].float()[None, :, None]
     y = y.reshape(x.shape[0], nh * hd).to(x_in.dtype)
-    y = L.rmsnorm(y, p["gate_norm_scale"]) * L.silu(z)
-    y = (y @ p["w_out"])[:, None, :]
-    return y, {"h": h, "conv": new_conv}
+    return y, z, {"h": h, "conv": new_conv}

@@ -6,8 +6,8 @@ HLO. Here:
 
 * ``HW``: one H100 SXM, dense rates from NVIDIA's data sheet at the
   700 W limit. A card set below it runs slower under load, so a share
-  of peak stands beside the card's power limit. There is no
-  interconnect term until the port runs on more than one card.
+  of peak stands beside the card's power limit. ``NVLINK_BW``
+  is the rate between the cards of one host.
 * ``model_flops`` / ``active_params``: the reference's 6·N·D (train) and
   2·N·D (inference) rule, N the active parameters of a mixture.
 * ``bound`` and one ``*_work`` function per hand-written kernel: the
@@ -18,7 +18,13 @@ HLO. Here:
 * ``count_flops``: the FLOPs of one call, counted by
   ``torch.utils.flop_counter.FlopCounterMode`` (matmuls, convolutions
   and attention, as the reference's ``dot_flops`` counts XLA's dots).
-* ``roofline_terms``: compute and memory time of a FLOP and byte count.
+* ``roofline_terms``: compute and memory time of a FLOP and byte count,
+  and, given the bytes a step's collectives put on the wire, their time
+  at NVLink's rate (``t_collective_s``).
+* ``collective_bytes``: the bytes of every ``c10d_functional`` collective
+  a call dispatches (DTensor's redistributions), by kind, times the
+  reference's ``COLLECTIVE_WIRE_FACTOR``: the counterpart of the
+  reference's count over XLA's partitioned HLO.
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ class HW:
                   "float32": 67e12}      # fp32: outside the tensor cores
     HBM_BW = 3.35e12                     # bytes/s
     HBM_BYTES = 80e9
+    # NVLink 4 between the cards of one host, each way. A mesh that spans
+    # hosts crosses slower links: its collective time is a lower bound.
+    NVLINK_BW = 450e9                    # bytes/s
 
     @classmethod
     def peak(cls, dtype) -> float:
@@ -167,14 +176,107 @@ def count_flops(fn, *args, **kwargs) -> Tuple[float, object]:
     return float(counter.get_total_flops()), out
 
 
-def roofline_terms(flops: float, nbytes: float, dtype) -> Dict[str, object]:
-    """Compute time at ``dtype``'s peak and memory time at the HBM rate,
-    and which of the two dominates."""
+def roofline_terms(flops: float, nbytes: float, dtype,
+                   collective: float = 0.0) -> Dict[str, object]:
+    """Compute time at ``dtype``'s peak, memory time at the HBM rate and
+    collective time (``collective`` wire bytes at ``NVLINK_BW``: a lower
+    bound for a mesh that spans hosts), and which of them dominates."""
     t_compute = flops / HW.peak(dtype)
     t_memory = nbytes / HW.HBM_BW
+    t_coll = collective / HW.NVLINK_BW
+    dominant = max((("compute", t_compute), ("memory", t_memory),
+                    ("collective", t_coll)), key=lambda kv: kv[1])[0]
     return {"flops": flops, "bytes": nbytes,
             "t_compute_s": t_compute, "t_memory_s": t_memory,
-            "dominant": "compute" if t_compute >= t_memory else "memory"}
+            "t_collective_s": t_coll, "dominant": dominant}
+
+
+# wire bytes per result byte (ring all-reduce: a reduce-scatter then an
+# all-gather), the reference's factors
+COLLECTIVE_WIRE_FACTOR = {
+    "all-reduce": 2.0,
+    "all-gather": 1.0,
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+_FUNCOL_KIND = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
+
+
+class CollectiveCounter:
+    """While active (a context manager), counts every
+    ``_c10d_functional`` collective dispatched on this rank (DTensor's
+    redistributions, forward and backward): ``bytes[kind]`` its result's
+    bytes times ``COLLECTIVE_WIRE_FACTOR``, as the reference counts the
+    result shapes of the partitioned HLO's collectives, and
+    ``calls[kind]``. With ``timed`` (CUDA tensors), ``seconds`` is the
+    time from each collective's issue to its wait on the compute stream,
+    by CUDA events, read on exit. Works on fake tensors (the dry-run)."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.bytes = {k: 0.0 for k in COLLECTIVE_WIRE_FACTOR}
+        self.calls = {k: 0 for k in COLLECTIVE_WIRE_FACTOR}
+        self.seconds = 0.0
+        self._events, self._open = [], []
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return counter._dispatch(func, args, kwargs or {})
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def _dispatch(self, func, args, kwargs):
+        import torch
+        coll = func.namespace == "_c10d_functional"
+        kind = _FUNCOL_KIND.get(func._opname) if coll else None
+        start = None
+        if kind is not None and self.timed and args and \
+                isinstance(args[0], torch.Tensor) and args[0].is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        res = func(*args, **kwargs)
+        if kind is not None:
+            self.bytes[kind] += (res.numel() * res.element_size()
+                                 * COLLECTIVE_WIRE_FACTOR[kind])
+            self.calls[kind] += 1
+            if start is not None:
+                self._open.append(start)
+        elif coll and func._opname == "wait_tensor" and self._open:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events.append((self._open.pop(0), end))
+        return res
+
+    def __exit__(self, *exc):
+        import torch
+        self._mode.__exit__(*exc)
+        if self._events:
+            torch.cuda.synchronize()
+            self.seconds = sum(a.elapsed_time(b) for a, b in
+                               self._events) / 1e3
+        return False
+
+    def summary(self) -> Dict[str, Dict]:
+        return {"bytes": dict(self.bytes, total=sum(self.bytes.values())),
+                "calls": dict(self.calls), "seconds": self.seconds}
+
+
+def collective_bytes(fn, *args, **kwargs) -> Tuple[Dict[str, Dict], object]:
+    """``(CollectiveCounter.summary(), result)`` of ``fn(*args,
+    **kwargs)``: its collectives' wire bytes and calls by kind."""
+    with CollectiveCounter() as counter:
+        result = fn(*args, **kwargs)
+    return counter.summary(), result
 
 
 def mfu(flops: float, wall_s: float, dtype) -> float:

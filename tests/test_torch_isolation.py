@@ -1,8 +1,8 @@
 """The port stands alone: no file under ``src/repro_torch/``, and not
 ``chip_smoke.py``, the port's examples (``examples/*_torch.py``), its
-tools (``tools/*_torch.py``) or the multi-rank test child
-(``tests/_torch_multidevice_child.py``), imports ``jax`` or the JAX
-package ``repro``; and
+tools (``tools/*_torch.py``) or the multi-rank test children
+(``tests/_torch_multidevice_child.py``, ``tests/_torch_lm_mesh_child.py``),
+imports ``jax`` or the JAX package ``repro``; and
 ``import repro_torch`` (every module of it) works in a fresh interpreter
 where ``jax`` and ``repro`` cannot be imported."""
 import ast
@@ -24,7 +24,8 @@ def _sources():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
             + sorted((ROOT / "examples").glob("*_torch.py"))
             + sorted((ROOT / "tools").glob("*_torch.py"))
-            + [ROOT / "tests" / "_torch_multidevice_child.py"])
+            + [ROOT / "tests" / "_torch_multidevice_child.py",
+               ROOT / "tests" / "_torch_lm_mesh_child.py"])
 
 
 def _imported_roots(path: Path):
@@ -52,7 +53,8 @@ def test_port_sources_exist():
                  "federated/strategies/hasfl.py", "federated/buffer.py",
                  "federated/round.py", "federated/sanitize.py",
                  "roofline/analysis.py", "analysis/fleetlint.py",
-                 "launch/mesh.py", "launch/sharding.py"):
+                 "launch/mesh.py", "launch/sharding.py",
+                 "launch/dryrun.py", "models/sharded.py"):
         assert want in names, want
     for example in ("quickstart_torch.py", "fault_tolerance_torch.py"):
         assert (ROOT / "examples" / example).exists(), example

@@ -30,7 +30,10 @@ vs off within 1e-4, the rolled cache. ``flash_attention`` at
 Whisper-small's decoder shape (16 × 224, 12 heads of 64), and a
 full-size fp32 Whisper prefill: one launch in each decoder layer,
 kernels on vs off within 1e-3 of the largest logit, the cross-attention
-cache bit for bit.
+cache bit for bit. ``flash_attention``, ``ssd_scan`` and ``fuse`` through
+the sharded regions' ``local_map`` on a (1, 1) NCCL mesh: the launches
+and the results of the meshless run; a gloo mesh of CUDA tensors
+refused.
 """
 import math
 
@@ -762,3 +765,82 @@ def test_float_check_ignores_the_kernels_uninitialised_outputs(cuda):
         total = sum(o.float().sum() for o in outs)
     assert check.failure() is None
     assert bool(torch.isfinite(total))
+
+
+# -------------------------------------------- the kernels on an LM mesh
+
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A (1, 1) ``("data", "model")`` mesh over a one-rank NCCL group made
+    for the test, destroyed after it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized")
+    mesh = make_test_mesh((1, 1), device=cuda)
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _mesh_case(kind, mesh, cuda):
+    """(launches, result) of a reduced model's step with the kernels on,
+    on ``mesh`` (None: meshless): a Llama prefill (flash), a Mamba2
+    prefill (ssd_scan) or a Mamba2 train step (fuse)."""
+    from repro_torch.configs import base
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssd_scan import ops as SS
+    from repro_torch.kernels.tpgf_fusion import ops as TF
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models.model import init_params
+    arch = "llama3_2_3b" if kind == "flash_attention" else "mamba2_2_7b"
+    cfg = base.get_reduced(arch).replace(use_pallas=True, microbatches=1)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda, mesh=mesh)
+    toks = torch.randint(0, cfg.vocab, (2, 33), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    counters = {"flash_attention": FA.flash_attention,
+                "ssd_scan": SS.ssd_scan, "fuse": TF.fuse_leaf}
+    before = counters[kind].launches
+    if kind == "fuse":
+        step, opt = make_train_step(cfg)
+        _, _, m = step(params, opt.init(params),
+                       {"tokens": toks[:, :32], "labels": toks[:, 1:]})
+        out = torch.stack([m["loss_client"], m["loss_server"]])
+    else:
+        out = make_prefill_step(cfg)(params, {"tokens": toks[:, :32]})[0]
+        if hasattr(out, "full_tensor"):
+            out = out.full_tensor()
+    return counters[kind].launches - before, out
+
+
+@pytest.mark.parametrize("kind", ["flash_attention", "ssd_scan", "fuse"])
+def test_kernels_launch_through_local_map_on_a_mesh(cuda, one_rank_mesh,
+                                                    kind):
+    """Each kernel reaches the card through its region's ``local_map`` on
+    a (1, 1) NCCL mesh: it launches as often as in the meshless run, and
+    the result is the meshless run's, bit for bit."""
+    want_n, want = _mesh_case(kind, None, cuda)
+    got_n, got = _mesh_case(kind, one_rank_mesh, cuda)
+    assert got_n == want_n > 0
+    assert torch.equal(got, want)
+
+
+def test_a_gloo_mesh_refuses_cuda_tensors(cuda):
+    """Gloo runs only all_reduce and broadcast on CUDA tensors: an LM mesh
+    of CUDA tensors over gloo raises, and so does placing a CUDA tensor
+    on a gloo mesh of CPU tensors."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_test_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="gloo runs only all_reduce"):
+            make_test_mesh((1, 1), device=cuda)
+        mesh = make_test_mesh((1, 1), device="cpu")
+        with pytest.raises(ValueError, match="gloo runs only all_reduce"):
+            SH.place(torch.zeros(4, 4, device=cuda), SH.P(None, None), mesh)
+    finally:
+        dist.destroy_process_group()

@@ -461,7 +461,17 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert manifest["step"] == 4 and manifest["meta"] == {
         "arch": "mamba2-reduced"}
     assert tree["embed"].shape == (512, 128)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # --mesh 1x1: one rank in this process, bit for bit the meshless run
+    capsys.readouterr()
+    meshed = TTRAIN.main(["--arch", "mamba2_2_7b", "--reduced", "--device",
+                          "cpu", "--steps", "4", "--batch", "4", "--seq",
+                          "16", "--log-every", "2", "--mesh", "1x1"])
+    assert [{k: v for k, v in r.items() if k != "elapsed_s"}
+            for r in meshed] == [{k: v for k, v in r.items()
+                                  if k != "elapsed_s"} for r in hist]
+    assert "mesh=" in capsys.readouterr().out.splitlines()[0]
+    # --mesh alone is the production mesh: 256 ranks or none
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
         TTRAIN.main(["--mesh", "--reduced", "--device", "cpu"])
 
 
