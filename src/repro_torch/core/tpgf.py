@@ -15,6 +15,10 @@ detached into a leaf that feeds both heads, and two
 each head's dL/dz back through the one retained graph.
 
 Everything returns *gradients*; ``repro_torch.optim`` applies them.
+``tpgf_grads_split``'s phases are ``repro_torch.trace`` spans
+(``tpgf.client_forward``, ``tpgf.local_head``, ``tpgf.server``,
+``tpgf.client_backward`` over both pulls, ``tpgf.fuse`` over the clip,
+Eqs. 3-4 and the degrade), as is ``tpgf_grads``' merge (``tpgf.merge``).
 ``tpgf_grads`` and ``local_only_grads`` take and return full-params
 trees (the LM train step's form); ``tpgf_grads_split`` works on the
 split views (the federated strategies' form).
@@ -30,6 +34,7 @@ from repro_torch.core import aggregation as AGG
 from repro_torch.core import supernet as SN
 from repro_torch.launch import sharding as SH
 from repro_torch.models import model as M
+from repro_torch.trace import span
 from repro_torch.tree import (grad_leaves, tree_flatten_with_path,
                               tree_leaves, tree_map, tree_unflatten)
 
@@ -144,7 +149,9 @@ def tpgf_grads(cfg: ModelConfig, params, batch, d: int, *,
     client_p, server_p, local_p = SN.split_params(cfg, params, d)
     out = tpgf_grads_split(cfg, cfg, client_p, server_p, local_p, batch, d,
                            server_available=server_available)
-    grads = SN.merge_params(cfg, out.g_client, out.g_server, out.g_local)
+    with span("tpgf.merge"):
+        grads = SN.merge_params(cfg, out.g_client, out.g_server,
+                                out.g_local)
     return TPGFOut(grads, out.loss_client, out.loss_server, out.w_client,
                    out.aux)
 
@@ -188,25 +195,31 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
     l_paths, l_leaves = grad_leaves(local_p)
 
     # ---- one client-prefix forward (Algorithm 2, line 13)
-    z, aux_prefix = M.client_apply(wcfg, tree_unflatten(c_paths, c_leaves),
-                                   batch)
+    with span("tpgf.client_forward"):
+        z, aux_prefix = M.client_apply(
+            wcfg, tree_unflatten(c_paths, c_leaves), batch)
     z_ = z.detach().requires_grad_(True)
 
     # ---- Phase 1: local supervision
-    loss_client = M.local_loss(cfg, tree_unflatten(l_paths, l_leaves), z_,
-                               batch)
-    *g_local, gz_client = torch.autograd.grad(loss_client, l_leaves + [z_])
+    with span("tpgf.local_head"):
+        loss_client = M.local_loss(cfg, tree_unflatten(l_paths, l_leaves),
+                                   z_, batch)
+        *g_local, gz_client = torch.autograd.grad(loss_client,
+                                                  l_leaves + [z_])
 
     # ---- Phase 2: server supervision
-    loss_server = M.server_split_loss(
-        cfg, tree_unflatten(s_paths, s_leaves), z_, batch)
-    *g_server, gz_server = torch.autograd.grad(loss_server, s_leaves + [z_])
+    with span("tpgf.server"):
+        loss_server = M.server_split_loss(
+            cfg, tree_unflatten(s_paths, s_leaves), z_, batch)
+        *g_server, gz_server = torch.autograd.grad(loss_server,
+                                                   s_leaves + [z_])
 
     # client backprop of each branch's dL/dz through the one prefix graph
-    g_client_local = torch.autograd.grad(z, c_leaves, grad_outputs=gz_client,
-                                         retain_graph=True)
-    g_client_server = torch.autograd.grad(z, c_leaves,
-                                          grad_outputs=gz_server)
+    with span("tpgf.client_backward"):
+        g_client_local = torch.autograd.grad(
+            z, c_leaves, grad_outputs=gz_client, retain_graph=True)
+        g_client_server = torch.autograd.grad(z, c_leaves,
+                                              grad_outputs=gz_server)
     g_client_local = tree_unflatten(c_paths, g_client_local)
     g_client_server = tree_unflatten(c_paths, g_client_server)
     g_server_params = tree_unflatten(s_paths, g_server)
@@ -220,14 +233,17 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
         g_local = SH.match_placements(g_local, local_p)
 
     # ---- Phase 3: clip + loss-weighted fusion (Eqs. 3-4)
-    g_client_local, _ = clip_by_global_l2(g_client_local, cfg.tpgf_clip)
-    loss_client, loss_server = loss_client.detach(), loss_server.detach()
-    w_c = tpgf_weight(loss_client, loss_server, d, d_s, cfg.tpgf_eps,
-                      variant=cfg.tpgf_variant)
-    g_client = fuse_gradients(g_client_local, g_client_server, w_c,
-                              use_pallas=cfg.use_pallas)
-    w_c, g_server_params, g_client = _fault_degrade(
-        server_available, w_c, g_server_params, g_client, g_client_local)
+    with span("tpgf.fuse"):
+        g_client_local, _ = clip_by_global_l2(g_client_local,
+                                              cfg.tpgf_clip)
+        loss_client, loss_server = loss_client.detach(), loss_server.detach()
+        w_c = tpgf_weight(loss_client, loss_server, d, d_s, cfg.tpgf_eps,
+                          variant=cfg.tpgf_variant)
+        g_client = fuse_gradients(g_client_local, g_client_server, w_c,
+                                  use_pallas=cfg.use_pallas)
+        w_c, g_server_params, g_client = _fault_degrade(
+            server_available, w_c, g_server_params, g_client,
+            g_client_local)
     if isinstance(aux_prefix, torch.Tensor):
         aux_prefix = aux_prefix.detach()
     return TPGFSplitOut(g_client, g_server_params, g_local,

@@ -4,7 +4,10 @@
 prefix -> {local head loss; server suffix + head loss} -> two backward
 passes through one prefix graph -> clip + TPGF fusion (Eqs. 3-4) -> the
 optimizer, with the batch split into ``cfg.microbatches`` microbatches
-whose gradients accumulate in fp32.
+whose gradients accumulate in fp32. Its phases are ``repro_torch.trace``
+spans: ``train.step`` around the whole, ``train.microbatch`` around each
+``tpgf_grads``, ``train.accumulate`` around the zeros and each add, and
+around the final cast, and ``optim.apply`` around ``apply_in_place``.
 
 ``make_prefill_step`` / ``make_serve_step`` are the teacher-forced
 cache-building forward and the single-token decode. Both run without
@@ -33,6 +36,7 @@ from repro_torch.models import decode as D
 from repro_torch.models import model as M
 from repro_torch.models.model import layer_role
 from repro_torch.optim import adamw
+from repro_torch.trace import span
 from repro_torch.tree import (tree_flatten_with_path, tree_get, tree_map,
                               tree_structure)
 
@@ -116,7 +120,8 @@ def make_train_step(cfg: ModelConfig, opt=None):
 
     def compute_grads(params, batch):
         if mb == 1:
-            out = T.tpgf_grads(cfg, params, batch, d)
+            with span("train.microbatch"):
+                out = T.tpgf_grads(cfg, params, batch, d)
             return out.grads, {"loss_client": out.loss_client,
                                "loss_server": out.loss_server,
                                "w_client": out.w_client,
@@ -126,16 +131,20 @@ def make_train_step(cfg: ModelConfig, opt=None):
                                    device=out.loss_client.device)}
         acc, lc, ls, wc = None, [], [], []
         for mbatch in _microbatches(batch, mb):
-            out = T.tpgf_grads(cfg, params, mbatch, d)
-            if acc is None:
-                acc = tree_map(lambda g: torch.zeros_like(
-                    g, dtype=torch.float32), out.grads)
-            tree_map(lambda a, g: a.add_(g.float() / mb), acc, out.grads)
+            with span("train.microbatch"):
+                out = T.tpgf_grads(cfg, params, mbatch, d)
+            with span("train.accumulate"):
+                if acc is None:
+                    acc = tree_map(lambda g: torch.zeros_like(
+                        g, dtype=torch.float32), out.grads)
+                tree_map(lambda a, g: a.add_(g.float() / mb), acc,
+                         out.grads)
             lc.append(out.loss_client)
             ls.append(out.loss_server)
             wc.append(out.w_client)
             del out
-        grads = tree_map(lambda g, p: g.to(p.dtype), acc, params)
+        with span("train.accumulate"):
+            grads = tree_map(lambda g, p: g.to(p.dtype), acc, params)
         dev = lc[0].device
         metrics = {"loss_client": torch.stack(lc).mean(),
                    "loss_server": torch.stack(ls).mean(),
@@ -144,11 +153,15 @@ def make_train_step(cfg: ModelConfig, opt=None):
         return grads, metrics
 
     def train_step(params, opt_state, batch):
-        grads, metrics = compute_grads(params, batch)
-        params, opt_state = apply_in_place(opt, grads, opt_state, params)
-        # a sharded step's metrics are replicated DTensors: the rank's copy
-        metrics = {k: v.to_local() if is_dtensor(v) else v
-                   for k, v in metrics.items()}
+        with span("train.step"):
+            grads, metrics = compute_grads(params, batch)
+            with span("optim.apply"):
+                params, opt_state = apply_in_place(opt, grads, opt_state,
+                                                   params)
+            # a sharded step's metrics are replicated DTensors: the
+            # rank's copy
+            metrics = {k: v.to_local() if is_dtensor(v) else v
+                       for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return train_step, opt

@@ -17,6 +17,10 @@ which tokens fill an expert's capacity.
 The router's softmax, the top-k weights, ``combine`` and the balance
 statistics are fp32; the expert contractions run in the activation
 dtype, with ``layers.silu`` rounding each op as the reference does.
+
+``moe_route`` and ``moe_combine`` are the ``repro_torch.trace`` spans
+``moe.route`` and ``moe.experts``, in every forward run of a layer,
+remat's recomputations included.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.trace import span
 
 MOE_TOKEN_CHUNK = 4096
 
@@ -133,13 +138,14 @@ def moe_route(cfg: ModelConfig, p, xt):
     chunk's routing stacked on a leading axis, f_e, P_e); f_e and P_e are
     averaged over the chunks."""
     fn = _route_gather if cfg.moe_dispatch == "gather" else _route_dense
-    parts = [fn(cfg, p, xk) for xk in _chunks(xt)]
-    if len(parts) == 1:
-        routed, f_e, P_e = parts[0]
-        return routed[None], f_e, P_e
-    routed, f_es, P_es = zip(*parts)
-    return (torch.stack(routed), torch.stack(f_es).mean(dim=0),
-            torch.stack(P_es).mean(dim=0))
+    with span("moe.route"):
+        parts = [fn(cfg, p, xk) for xk in _chunks(xt)]
+        if len(parts) == 1:
+            routed, f_e, P_e = parts[0]
+            return routed[None], f_e, P_e
+        routed, f_es, P_es = zip(*parts)
+        return (torch.stack(routed), torch.stack(f_es).mean(dim=0),
+                torch.stack(P_es).mean(dim=0))
 
 
 def moe_combine(cfg: ModelConfig, p, xt, routed):
@@ -147,8 +153,9 @@ def moe_combine(cfg: ModelConfig, p, xt, routed):
     dm]. Linear in the expert weights' d_ff slices: a tensor-parallel
     rank's d_ff slice gives its share of the sum."""
     fn = _combine_gather if cfg.moe_dispatch == "gather" else _combine_dense
-    ys = [fn(p, xk, r) for xk, r in zip(_chunks(xt), routed)]
-    return ys[0] if len(ys) == 1 else torch.cat(ys)
+    with span("moe.experts"):
+        ys = [fn(p, xk, r) for xk, r in zip(_chunks(xt), routed)]
+        return ys[0] if len(ys) == 1 else torch.cat(ys)
 
 
 def moe_aux(cfg: ModelConfig, f_e, P_e):
