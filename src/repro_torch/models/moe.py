@@ -72,11 +72,64 @@ def _balance(onehot, probs):
     return onehot.sum(dim=1).mean(dim=0), probs.mean(dim=0)
 
 
+def _bmm_f32(a, b):
+    """``torch.bmm(a, b)`` with an fp32 result: cuBLAS hands out its fp32
+    accumulator for bf16 operands (``out_dtype``); the CPU has no such
+    kernel, so there the operands are widened first (exactly, for bf16)."""
+    if a.device.type == "cpu":
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _SharedRowsGateUp(torch.autograd.Function):
+    """(x @ w_gate[e], x @ w_up[e]) for every expert e on the same rows
+    x [n, dm] -> two [E, n, dff].
+
+    Batched GEMMs over x broadcast along the expert axis (batch stride 0)
+    read the weights as stored. ``torch.matmul(x, w)`` with a gradient
+    folds ``w`` into ``w.mT.reshape(E·dff, dm)`` instead, a transposed
+    copy of each weight a call, and copies the [E, n, dff] output
+    gradient and the weight gradient in its backward. The weight
+    gradients are the same K = n contractions here; the input gradient
+    sums the 2·E per-expert products in fp32 and rounds once (the folded
+    GEMMs round each weight's sum, and autograd their sum)."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up):
+        ctx.save_for_backward(x, w_gate, w_up)
+        xe = x.expand(w_gate.shape[0], *x.shape)
+        return torch.bmm(xe, w_gate), torch.bmm(xe, w_up)
+
+    @staticmethod
+    def backward(ctx, dg, du):
+        x, w_gate, w_up = ctx.saved_tensors
+        dx = dwg = dwu = None
+        if ctx.needs_input_grad[0]:
+            acc = _bmm_f32(dg, w_gate.mT)
+            acc += _bmm_f32(du, w_up.mT)
+            dx = acc.sum(dim=0).to(x.dtype)
+        xte = x.mT.expand(w_gate.shape[0], *x.mT.shape)      # [E,dm,n]
+        if ctx.needs_input_grad[1]:
+            dwg = torch.bmm(xte, dg)
+        if ctx.needs_input_grad[2]:
+            dwu = torch.bmm(xte, du)
+        return dx, dwg, dwu
+
+
+def gate_up(p, x):
+    """The experts' gate and up products, each [E, n, dff]: x [E, n, dm]
+    (each expert on its own rows, the gather dispatch) through
+    ``torch.matmul``, or x [n, dm] (every expert on the same rows, the
+    dense dispatch) through ``_SharedRowsGateUp``."""
+    if x.dim() == 2:
+        return _SharedRowsGateUp.apply(x, p["w_gate"], p["w_up"])
+    return torch.matmul(x, p["w_gate"]), torch.matmul(x, p["w_up"])
+
+
 def expert_ffn(p, x):
     """Each expert's SwiGLU on its own rows: x [E, n, dm] (or [n, dm],
     every expert on the same rows) -> [E, n, dm]."""
-    g = torch.matmul(x, p["w_gate"])
-    u = torch.matmul(x, p["w_up"])
+    g, u = gate_up(p, x)
     return torch.matmul(L.silu(g) * u, p["w_down"])
 
 

@@ -844,3 +844,85 @@ def test_a_gloo_mesh_refuses_cuda_tensors(cuda):
             SH.place(torch.zeros(4, 4, device=cuda), SH.P(None, None), mesh)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------ the experts at Mixtral's widths
+
+def _copy_kernels(cuda, fn):
+    """(name, ms) of every copy on the card (a ``direct_copy`` kernel, the
+    strided ``elementwise_kernel<128, 4, ...>``, a ``Memcpy``) in one run
+    of ``fn``, traced by ``torch.profiler`` after an untraced run."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.ones(1, device=cuda).add_(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=cuda).add_(1)   # the profiler may miss its first
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type().name != "CPU"
+            and any(k in e.name() for k in ("direct_copy", "Memcpy",
+                                            "elementwise_kernel<128, 4,"))]
+
+
+def test_expert_ffn_at_mixtral_widths_copies_no_weight(cuda):
+    """One ``expert_ffn`` forward and backward at Mixtral-8x7B's widths (E
+    8, d_model 4,096, d_ff 14,336, n 1,024 tokens, bf16) makes no copy on
+    the card that lasts 0.1 ms or more: moving the E·n·d_ff elements of a
+    gate product (470 MB read and written) takes 0.14 ms at the card's
+    3.35 TB/s, a weight four times that. The broadcast ``torch.matmul(x
+    [n, dm], w [E, dm, dff])`` on the same inputs makes such copies (its
+    fold). The gate/up pair's input and weight gradients against fp32
+    sums of the same bf16 operands: each error norm within the one the
+    fold reaches (the weight gradients round the same K = n sums, so
+    within 1 % of it)."""
+    from repro_torch.models import layers as L, moe as MOE
+    E, dm, dff, n = 8, 4096, 14336, 1024
+    g = torch.Generator(device=cuda).manual_seed(27)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=cuda)).to(
+            torch.bfloat16)
+    # leaves that take gradients: torch.matmul folds only then
+    p = {k: r(*s, scale=0.02).requires_grad_() for k, s in (
+        ("w_gate", (E, dm, dff)), ("w_up", (E, dm, dff)),
+        ("w_down", (E, dff, dm)))}
+    x, dy = r(n, dm).requires_grad_(), r(E, n, dm)
+
+    def matmul_ffn(w, xg):
+        h = torch.matmul(xg, w["w_gate"])
+        return torch.matmul(L.silu(h) * torch.matmul(xg, w["w_up"]),
+                            w["w_down"])
+
+    def long_copies(ffn):
+        return [c for c in _copy_kernels(cuda, lambda: torch.autograd.grad(
+            ffn(p, x), [x, *p.values()], dy)) if c[1] >= 0.1]
+    assert long_copies(MOE.expert_ffn) == []
+    assert len(long_copies(matmul_ffn)) >= 2
+
+    dg, du = r(E, n, dff), r(E, n, dff)
+
+    def grads(pair):
+        return torch.autograd.grad(pair(p, x), [x, p["w_gate"], p["w_up"]],
+                                   (dg, du))
+    new = grads(MOE.gate_up)
+    old = grads(lambda w, xg: (torch.matmul(xg, w["w_gate"]),
+                               torch.matmul(xg, w["w_up"])))
+    del dy
+    err = {k: [0.0, 0.0] for k in ("dx", "w_gate", "w_up")}
+    with torch.no_grad():
+        xf = x.float()
+        want_dx = torch.zeros((n, dm), device=cuda)
+        for e in range(E):
+            for i, (k, d) in enumerate((("w_gate", dg), ("w_up", du)), 1):
+                want_dx += d[e].float() @ p[k][e].float().mT
+                want = xf.mT @ d[e].float()
+                for j, got in enumerate((new[i], old[i])):
+                    err[k][j] += float((got[e].float() - want).square().sum())
+        for j, got in enumerate((new[0], old[0])):
+            err["dx"][j] = float((got.float() - want_dx).square().sum())
+    assert err["dx"][0] <= err["dx"][1], err
+    for k in ("w_gate", "w_up"):
+        assert err[k][0] <= 1.01 ** 2 * err[k][1], err

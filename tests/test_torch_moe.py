@@ -10,6 +10,9 @@ vocab 512; fp32 unless named).
 - bf16 on the same numpy inputs: the elementwise ops (the router's fp32
   cast, silu·u, combine and its bf16 cast, the gather weights) bit for
   bit, the contractions within one bf16 ulp;
+- ``expert_ffn`` makes no copy of weight or [E, n, d_ff] size, forward
+  or backward, for either token shape; the dense gate/up pair's bf16
+  input gradient within the error of ``torch.matmul``'s fold;
 - ``prefill`` logits and caches on the plain, flash-wrapper and blockwise
   routes (the reference's Pallas flash in interpret mode), Mixtral's
   prompt past its 16-token window, so the cache rolls; decode step by
@@ -247,17 +250,127 @@ def test_bf16_contractions_within_one_ulp():
     y_e = np.asarray(jnp.einsum("etf,efd->etd", j["h"], j["wd"]))
     pairs = [
         (t["xt"] @ t["router"], j["xt"] @ j["router"]),
-        (torch.matmul(t["xt"], t["wg"]),
+        (TMOE.gate_up({"w_gate": t["wg"], "w_up": t["wg"]}, t["xt"])[0],
          jnp.einsum("td,edf->etf", j["xt"], j["wg"])),
         (torch.matmul(t["h"], t["wd"]), y_e),
         (torch.einsum("etd,te->td", _t(y_e), t["comb"]),
          jnp.einsum("etd,te->td", jnp.asarray(y_e), j["comb"])),
-        (torch.matmul(t["sel"], t["wg"]),
+        (TMOE.gate_up({"w_gate": t["wg"], "w_up": t["wg"]}, t["sel"])[0],
          jnp.einsum("ecd,edf->ecf", j["sel"], j["wg"])),
     ]
     for i, (got, want) in enumerate(pairs):
         assert got.dtype == torch.bfloat16
         assert _ulps(got, np.asarray(want)) <= 1, i
+
+
+def _expert_weights(dtype, device="cpu", seed=12):
+    cfg = TB.get_reduced("mixtral_8x7b")
+    E, dm, dff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    g = torch.Generator().manual_seed(seed)
+    return {k: (0.1 * torch.randn(s, generator=g)).to(dtype).to(device)
+            for k, s in (("w_gate", (E, dm, dff)), ("w_up", (E, dm, dff)),
+                         ("w_down", (E, dff, dm)))}
+
+
+def _matmul_expert_ffn(p, x):
+    """``expert_ffn`` as ``torch.matmul`` on every token shape (the
+    broadcast fold for x [n, dm])."""
+    g = torch.matmul(x, p["w_gate"])
+    u = torch.matmul(x, p["w_up"])
+    return torch.matmul(TL.silu(g) * u, p["w_down"])
+
+
+def _ffn_and_grads(fn, p, x, dy):
+    """fn's output and its gradients for x and each weight, given dy."""
+    x = x.detach().requires_grad_()
+    w = {k: v.detach().requires_grad_() for k, v in p.items()}
+    y = fn(w, x)
+    return (y, *torch.autograd.grad(y, [x, *w.values()], dy))
+
+
+@pytest.mark.parametrize("rows", ["dense", "gather"])
+def test_expert_ffn_copies_nothing_of_weight_or_intermediate_size(rows):
+    """``expert_ffn`` forward and backward in bf16 on ``meta`` tensors at
+    the reduced Mixtral's widths: no ``clone``, ``copy_`` or ``_to_copy``
+    outputs E·dm·dff or E·n·dff elements or more (``meta`` takes the
+    card's branch of ``_bmm_f32``; on the CPU, bf16 operands are widened
+    there). ``torch.matmul`` on x [n, dm] makes such copies (its fold),
+    which shows the check sees them. Against ``torch.matmul`` throughout,
+    the dense dispatch's tokens x [n, dm] give the same outputs and
+    gradients within fp32 rounding, the gather dispatch's x [E, cap, dm]
+    the same bits in bf16."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    p = _expert_weights(torch.bfloat16, "meta")
+    E, dm, dff = p["w_gate"].shape
+    n = 24
+    shape = (n, dm) if rows == "dense" else (E, n, dm)
+    big = min(E * dm * dff, E * n * dff)
+
+    class Copies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.sizes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket in (torch.ops.aten.clone,
+                                       torch.ops.aten.copy_,
+                                       torch.ops.aten._to_copy):
+                self.sizes.append(out.numel())
+            return out
+
+    def copies(fn):
+        x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+        with Copies() as mode:
+            _ffn_and_grads(fn, p, x, torch.empty((E, n, dm), device="meta",
+                                                 dtype=torch.bfloat16))
+        return [s for s in mode.sizes if s >= big]
+
+    assert copies(TMOE.expert_ffn) == []
+    if rows == "dense":
+        assert len(copies(_matmul_expert_ffn)) >= 2
+
+    dtype = torch.float32 if rows == "dense" else torch.bfloat16
+    p = _expert_weights(dtype)
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(shape, generator=g).to(dtype)
+    dy = torch.randn((E, n, dm), generator=g).to(dtype)
+    got = _ffn_and_grads(TMOE.expert_ffn, p, x, dy)
+    want = _ffn_and_grads(_matmul_expert_ffn, p, x, dy)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, i
+        if rows == "dense":
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(a.contiguous().view(torch.int16),
+                               b.contiguous().view(torch.int16)), i
+
+
+def test_bf16_dense_input_gradient_within_the_folded_paths_error():
+    """The dense dispatch's input gradient of the gate/up pair in bf16,
+    against the same sums in float64: its error norm within that of the
+    folded ``torch.matmul`` (each weight's sum rounded, then their sum)."""
+    p = _expert_weights(torch.bfloat16, seed=14)
+    E, dm, dff = p["w_gate"].shape
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn((64, dm), generator=g).bfloat16()
+    dg, du = (torch.randn((E, 64, dff), generator=g).bfloat16()
+              for _ in range(2))
+    want = sum(torch.einsum("etf,edf->td", d.double(), p[k].double())
+               for d, k in ((dg, "w_gate"), (du, "w_up")))
+
+    def input_grad(fn):
+        xg = x.clone().requires_grad_()
+        w = {k: v.clone().requires_grad_() for k, v in p.items()}
+        return torch.autograd.grad(fn(w, xg), xg, (dg, du))[0]
+
+    new = input_grad(TMOE.gate_up)
+    fold = input_grad(lambda w, xg: (torch.matmul(xg, w["w_gate"]),
+                                     torch.matmul(xg, w["w_up"])))
+    assert new.dtype == fold.dtype == torch.bfloat16
+    err_new = float((new.double() - want).norm())
+    err_fold = float((fold.double() - want).norm())
+    assert err_new <= err_fold, (err_new, err_fold)
 
 
 # ---------------------------------------------------------------- serving
