@@ -8,7 +8,9 @@ dense causal LMs (``llama3_2_3b``, ``qwen2_5_3b``, ``gemma_2b``,
 ``internlm2_1_8b``), the ssm ``mamba2_2_7b``, the hybrid
 ``hymba_1_5b``, the moe ``mixtral_8x7b`` and ``grok_1_314b``, the
 vlm ``internvl2_2b`` and the audio encoder-decoder ``whisper_small``,
-each with its ``reduced()`` form: every config of the JAX package.
+each with its ``reduced()`` form: every config of the JAX package. It
+also carries the ``ssm_moe`` family's ``granite_4_0_h_small``, whose
+fields beyond ``ModelConfig``'s are on the subclass ``SSMMoEConfig``.
 
 It also carries the reference's input-shape matrix (``InputShape``,
 ``INPUT_SHAPES``, ``ARCH_IDS``, ``skip_reason``, ``all_combos``), which
@@ -29,6 +31,7 @@ def _round_up(x: int, m: int) -> int:
 class ModelConfig:
     name: str
     family: str                      # dense | moe | ssm | hybrid | vlm | audio | vit
+                                     # (ssm_moe: SSMMoEConfig below)
     n_layers: int
     d_model: int
     n_heads: int                     # 0 for attention-free
@@ -128,6 +131,33 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# the ssm_moe family's layer kinds, in ``layer_kinds`` and as the keys of
+# each kind's mixer stack
+LAYER_KINDS = ("mamba", "attention")
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMMoEConfig(ModelConfig):
+    """The ``ssm_moe`` family (Granite-4.0-H): a stack of Mamba-2 mixers
+    and NoPE attention layers in a published order, each followed by a
+    routed mixture of experts and a shared expert, with muP multipliers.
+    The JAX package has no such family, so its fields live here and
+    ``ModelConfig`` keeps the JAX package's fields alone.
+
+    ``n_experts`` counts the experts held here, ``[expert_offset,
+    expert_offset + n_experts)`` of the router's ``router_experts``: a
+    card's share under expert parallelism."""
+    layer_kinds: tuple = ()          # "mamba" | "attention", one a layer
+    router_experts: int = 0          # the router's outputs (all experts)
+    expert_offset: int = 0           # the first expert held here
+    shared_expert_ff: int = 0        # the always-on SwiGLU's width
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0   # the score scale (0: 1/sqrt(hd))
+    logits_scaling: float = 1.0      # both heads' logits are divided by it
+    rms_norm_eps: float = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)

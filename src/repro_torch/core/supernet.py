@@ -22,6 +22,12 @@ four views are:
 
 The residual stream (``d_model``, the smashed data) is full width at
 every tier, so the server branch and the local head never slice.
+
+An ``ssm_moe`` stack (layers of two kinds in a published order) has
+leaves with a row for every layer and, for each kind, a mixer stack
+with a row for each layer of that kind: ``depth_window`` cuts the first
+at the depth and each mixer stack at the number of its kind's layers
+below it. It trains at full width only.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LAYER_KINDS, ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -41,12 +47,19 @@ _CLIENT_INPUT_KEYS = ("embed", "vision_proj", "patch_embed", "patch_bias",
 _LOCAL_KEYS = ("local_head", "local_head_bias")
 
 
-def prefix(stack, d: int):
-    return tree_map(lambda x: x[:d], stack)
+def depth_window(cfg: ModelConfig, stack, lo: int, hi: int = None):
+    """Layers ``[lo:hi]`` of the split stack (views). An ssm_moe stack's
+    mixer stack of each kind is cut at the number of that kind's layers
+    below ``lo`` and ``hi``."""
+    if cfg.family != "ssm_moe":
+        return tree_map(lambda x: x[lo:hi], stack)
 
+    def below(kind, i):
+        return None if i is None else cfg.layer_kinds[:i].count(kind)
 
-def suffix(stack, d: int):
-    return tree_map(lambda x: x[d:], stack)
+    return {k: (tree_map(lambda x: x[below(k, lo):below(k, hi)], v)
+                if k in LAYER_KINDS else tree_map(lambda x: x[lo:hi], v))
+            for k, v in stack.items()}
 
 
 # --------------------------------------------------------------- width views
@@ -59,6 +72,9 @@ def width_cfg(cfg: ModelConfig, width: float) -> ModelConfig:
     ``n_heads``)."""
     if width >= 1.0:
         return cfg
+    if cfg.family == "ssm_moe":
+        raise NotImplementedError("family='ssm_moe' at width < 1: not "
+                                  "ported (it trains at full width)")
     hd = cfg.resolved_head_dim
     group = max(1, cfg.n_heads // max(1, cfg.n_kv_heads))
     kv = max(1, int(round(width * cfg.n_kv_heads)))
@@ -196,9 +212,9 @@ def split_params(cfg: ModelConfig, params: Params, d=None,
         if k in _LOCAL_KEYS:
             local[k] = v
         elif k == sname:
-            client[k] = slice_width(cfg, v if d is None else prefix(v, d),
-                                    width)
-            server[k] = v if d is None else suffix(v, d)
+            client[k] = slice_width(
+                cfg, v if d is None else depth_window(cfg, v, 0, d), width)
+            server[k] = v if d is None else depth_window(cfg, v, d)
         elif k in _CLIENT_INPUT_KEYS and not (cfg.is_encdec and k == "embed"):
             client[k] = v
         else:
@@ -209,7 +225,8 @@ def split_params(cfg: ModelConfig, params: Params, d=None,
 def merge_params(cfg: ModelConfig, client: Params, server: Params,
                  local: Params) -> Params:
     """Inverse of ``split_params`` on depth-sliced views: the two stack
-    slices concatenate back."""
+    slices concatenate back (an ssm_moe stack's kind stacks too, each at
+    its own cut)."""
     sname = cfg.split_stack_name
     out: Params = {}
     for k, v in client.items():

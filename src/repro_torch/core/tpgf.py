@@ -166,7 +166,8 @@ def local_only_grads(cfg: ModelConfig, params, batch, d: int):
     l_paths, l_leaves = grad_leaves(local_p)
     z, _ = M.client_apply(cfg, tree_unflatten(c_paths, c_leaves), batch)
     loss = M.local_loss(cfg, tree_unflatten(l_paths, l_leaves), z, batch)
-    grads = torch.autograd.grad(loss, c_leaves + l_leaves)
+    grads = torch.autograd.grad(loss, c_leaves + l_leaves,
+                                materialize_grads=True)
     g_client = tree_unflatten(c_paths, grads[:len(c_leaves)])
     g_local = tree_unflatten(l_paths, grads[len(c_leaves):])
     g_client, _ = clip_by_global_l2(g_client, cfg.tpgf_clip)
@@ -208,18 +209,21 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
                                                   l_leaves + [z_])
 
     # ---- Phase 2: server supervision
+    # (an ssm_moe view may hold a kind's mixer stack with no rows, which
+    # no layer reads: its gradient is materialised as zeros)
     with span("tpgf.server"):
         loss_server = M.server_split_loss(
             cfg, tree_unflatten(s_paths, s_leaves), z_, batch)
-        *g_server, gz_server = torch.autograd.grad(loss_server,
-                                                   s_leaves + [z_])
+        *g_server, gz_server = torch.autograd.grad(
+            loss_server, s_leaves + [z_], materialize_grads=True)
 
     # client backprop of each branch's dL/dz through the one prefix graph
     with span("tpgf.client_backward"):
         g_client_local = torch.autograd.grad(
-            z, c_leaves, grad_outputs=gz_client, retain_graph=True)
-        g_client_server = torch.autograd.grad(z, c_leaves,
-                                              grad_outputs=gz_server)
+            z, c_leaves, grad_outputs=gz_client, retain_graph=True,
+            materialize_grads=True)
+        g_client_server = torch.autograd.grad(
+            z, c_leaves, grad_outputs=gz_server, materialize_grads=True)
     g_client_local = tree_unflatten(c_paths, g_client_local)
     g_client_server = tree_unflatten(c_paths, g_client_server)
     g_server_params = tree_unflatten(s_paths, g_server)

@@ -62,6 +62,49 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = DEFAULT_CHUNK, h0=None):
     return y, h
 
 
+def ssd_chunks_at_once(x, dt, A, B, C, *, chunk: int = DEFAULT_CHUNK):
+    """``ssd_chunked`` from a zero state, with every chunk at once: the
+    same terms in a fixed number of batched operations, where the loop
+    issues a dozen a chunk (under autograd, at 4,096 rows, the host's
+    launches then pace the card). The state entering chunk c is
+    Σ_{k<c} exp(t_{c−1} − t_k)·h_k, with h_k chunk k's own contribution
+    to the state at its end and t the running sum of the chunks' total
+    exponents; both exponents are masked to −inf where a term does not
+    exist before ``exp``, as in ``ssd_chunked``. Arguments as there; a
+    sequence that ``chunk`` does not divide is one chunk. Returns y
+    [Bt, S, nh, hd] and the final state h [Bt, nh, hd, st], as
+    ``ssd_chunked`` does."""
+    Bt, S, nh, hd = x.shape
+    st = B.shape[-1]
+    if S % chunk != 0:
+        chunk = S
+    nc = S // chunk
+    x, dt = x.reshape(Bt, nc, chunk, nh, hd), dt.reshape(Bt, nc, chunk, nh)
+    B, C = B.reshape(Bt, nc, chunk, st), C.reshape(Bt, nc, chunk, st)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))[:, :, None]
+    s = torch.cumsum(dt * A, dim=2)                          # [Bt,nc,cl,nh]
+    u = x * dt[..., None]                                    # [Bt,nc,cl,nh,hd]
+    Lm = torch.exp(torch.where(tri, s[:, :, :, None] - s[:, :, None],
+                               -torch.inf))                  # [Bt,nc,i,j,nh]
+    W = torch.einsum("bcis,bcjs->bcij", C, B)[..., None] * Lm
+    y = torch.einsum("bcijh,bcjhd->bcihd", W, u)             # intra-chunk
+    decay_end = torch.exp(s[:, :, -1:] - s)                  # [Bt,nc,cl,nh]
+    h_own = torch.einsum("bcjhd,bcjs->bchds", u * decay_end[..., None], B)
+    t = torch.cumsum(s[:, :, -1], dim=1)                     # [Bt,nc,nh]
+    t_prev = torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
+    earlier = torch.tril(torch.ones((nc, nc), dtype=torch.bool,
+                                    device=x.device), -1)[:, :, None]
+    carry = torch.exp(torch.where(earlier, t_prev[:, :, None] - t[:, None],
+                                  -torch.inf))               # [Bt,c,k,nh]
+    h_in = torch.einsum("bckh,bkhds->bchds", carry, h_own)
+    y = y + torch.einsum("bcis,bchds->bcihd", C, h_in) \
+        * torch.exp(s)[..., None]
+    h = torch.exp(s[:, -1, -1])[:, :, None, None] * h_in[:, -1] \
+        + h_own[:, -1]
+    return y.reshape(Bt, S, nh, hd), h
+
+
 def ssd_ref(x, dt, A, B, C, D=None, *, chunk: int = 128):
     """The kernel's function: ``ssd_chunked`` plus ``D·x`` (D [nh] or
     None). Returns (y, h_final)."""

@@ -140,6 +140,8 @@ def _spec_for(mesh, name: str, parent: str, shape, fsdp) -> P:
 def param_pspecs(cfg, params_shapes, mesh) -> Dict[str, Any]:
     """The spec tree of a params (shape) tree: anything with ``.shape``
     at the leaves (``launch.steps.params_specs``'s meta tensors)."""
+    if cfg.family == "ssm_moe":
+        raise NotImplementedError("family='ssm_moe' on a mesh: not ported")
     fsdp = fsdp_axes(mesh)
     flat = tree_flatten_with_path(params_shapes)
     return tree_unflatten(

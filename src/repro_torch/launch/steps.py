@@ -107,8 +107,8 @@ def make_train_step(cfg: ModelConfig, opt=None):
     the reference's, whose step fails there too). The ssm family trains
     with the kernels on: its scan takes the plain ``ssd_chunked`` under
     autograd and Eq. 4 the ``fuse`` kernel."""
-    if cfg.use_pallas and (layer_role(cfg) in ("dense", "moe", "hybrid")
-                           or cfg.is_encdec):
+    if cfg.use_pallas and (layer_role(cfg) in ("dense", "moe", "hybrid",
+                                               "ssm_moe") or cfg.is_encdec):
         raise NotImplementedError(
             f"train step, family={cfg.family!r} with use_pallas=True: the "
             "flash_attention kernel has no backward (nor has the JAX "

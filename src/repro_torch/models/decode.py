@@ -69,6 +69,10 @@ LONG_CONTEXT_THRESHOLD = 65536
 def _check_servable(cfg: ModelConfig) -> None:
     if cfg.family == "vit":
         raise ValueError("encoder-only classifier has no decode path")
+    if cfg.family == "ssm_moe":
+        raise NotImplementedError("family='ssm_moe': serving (prefill, "
+                                  "decode, its cache) is not ported; it "
+                                  "trains through launch.steps")
     check_family(cfg)
 
 

@@ -97,11 +97,12 @@ def apply_rope(x, positions, theta: float):
 
 # ----------------------------------------------------------------- attention
 
-def attention(q, k, v, *, mask=None):
+def attention(q, k, v, *, mask=None, scale: float = None):
     """Reference attention with GQA broadcast, fp32 scores.
 
     q: [B, Sq, H, hd]; k, v: [B, Sk, K, hd] with H % K == 0.
     mask: broadcastable to [B, H, Sq, Sk] (True = attend).
+    scale: the scores' factor (None: divided by √hd).
 
     Both einsums run on fp32 operands (exact for bf16 inputs), as the
     reference's ``preferred_element_type=float32`` does; the
@@ -112,8 +113,8 @@ def attention(q, k, v, *, mask=None):
     K = k.shape[2]
     G = H // K
     qf = q.reshape(B, Sq, K, G, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qf.float(),
-                          k.float()) / math.sqrt(hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qf.float(), k.float())
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     scores = scores.reshape(B, H, Sq, k.shape[1])
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
@@ -240,11 +241,12 @@ ATTN_BLOCKWISE_THRESHOLD = 4096
 
 
 def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
-                        bq: int = 512, bk: int = 1024):
+                        bq: int = 512, bk: int = 1024, scale: float = None):
     """Online-softmax attention over query and kv blocks, in plain PyTorch:
     never holds more than a [B, H, bq, bk] fp32 score block. The
     reference's path for S >= ATTN_BLOCKWISE_THRESHOLD with the kernels
-    off. Positions are arange (prefill self-attention).
+    off. Positions are arange (prefill self-attention); ``scale`` as in
+    ``attention``.
 
     q: [B, Sq, H, hd]; k, v: [B, Skv, K, hd] -> [B, Sq, H, hd].
     """
@@ -255,7 +257,7 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
     if Sq % bq or Skv % bk:
         raise ValueError(f"blockwise_attention: Sq {Sq} and Skv {Skv} must "
                          f"divide into blocks of {bq} and {bk}")
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     dev = q.device
     outs = []
     for i in range(Sq // bq):

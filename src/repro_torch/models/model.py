@@ -6,9 +6,14 @@ top-k mixture of experts in place of the MLP, whose router loss each
 layer adds to ``aux``), ``vlm`` (the dense layers over a prefix of
 projected image patches, ``batch["patches"] @ vision_proj``, before the
 token embeddings; the losses skip the patch positions), ``ssm`` (one
-Mamba-2 mixer per layer, attention-free) and ``hybrid`` (attention and a
-Mamba-2 mixer side by side on one normed input, then an MLP) and
-``audio``, the Whisper encoder-decoder: audio frames
+Mamba-2 mixer per layer, attention-free), ``hybrid`` (attention and a
+Mamba-2 mixer side by side on one normed input, then an MLP), ``ssm_moe``
+(Granite-4.0-H: each layer's mixer is a Mamba-2 mixer or NoPE attention
+as ``layer_kinds`` orders them, then a mixture of experts held in part
+and a shared expert, both branches scaled by ``residual_multiplier``;
+tokens embedded times ``embedding_multiplier``, both heads' logits
+divided by ``logits_scaling``) and ``audio``, the Whisper
+encoder-decoder: audio frames
 (``batch["frames"] @ frame_proj`` plus a sinusoid) through the encoder
 stack ``enc_layers`` (non-causal attention, no rope), ``enc_norm``, then
 the decoder stack ``dec_layers`` over ``embed[tokens]·√d_model +
@@ -27,9 +32,11 @@ slices the stack at ``d`` (the JAX package pins its static and runtime
 forms bit-exact, and ``tests/test_torch_model.py`` holds this slice
 against its runtime form).
 
-Every family serves (the LM families through ``models/decode.py``) and
-trains through the SuperSFL surfaces below; the LM families' losses are
-next-token cross-entropies over the unpadded vocabulary, weighted by
+Every family but ``ssm_moe`` serves (the LM families through
+``models/decode.py``), and every family trains through the SuperSFL
+surfaces below (``ssm_moe`` at full width and without a mesh); the LM
+families' losses are next-token cross-entropies over the unpadded
+vocabulary, weighted by
 ``batch["valid"]`` where the batch has one. With ``cfg.remat`` each layer
 of a forward that records a gradient is checkpointed (its activations are
 recomputed in the backward), the reference's ``jax.checkpoint`` of the
@@ -57,13 +64,15 @@ Public surface (the JAX module's names):
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LAYER_KINDS, ModelConfig
+from repro_torch.core import supernet as SN
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.launch import sharding as SH
@@ -79,14 +88,15 @@ Params = Dict[str, Any]
 DEC_POS_ROWS = 32768
 
 
-FAMILIES = ("vit", "dense", "moe", "vlm", "ssm", "hybrid", "audio")
+FAMILIES = ("vit", "dense", "moe", "vlm", "ssm", "hybrid", "audio",
+            "ssm_moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family={cfg.family!r}: the port runs the families of the "
-            f"JAX package's model zoo, {', '.join(FAMILIES)}")
+            f"JAX package's model zoo and ssm_moe, {', '.join(FAMILIES)}")
 
 
 def side_input_shapes(cfg: ModelConfig, batch: int) -> Dict[str, Tuple]:
@@ -103,7 +113,8 @@ def side_input_shapes(cfg: ModelConfig, batch: int) -> Dict[str, Tuple]:
 
 def layer_role(cfg: ModelConfig) -> str:
     return {"dense": "dense", "moe": "moe", "ssm": "ssm", "hybrid": "hybrid",
-            "vlm": "dense", "audio": "enc", "vit": "enc"}[cfg.family]
+            "vlm": "dense", "audio": "enc", "vit": "enc",
+            "ssm_moe": "ssm_moe"}[cfg.family]
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -167,6 +178,37 @@ def _stack(cfg: ModelConfig, gen: torch.Generator, n: int, dtype,
         for path, x in kept.items():
             out[path][i].copy_(x)
         del layer, kept
+    return tree_unflatten(list(out), list(out.values()))
+
+
+def _ssm_moe_stack(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+    """The ssm_moe family's stack, drawn layer by layer in published
+    order: the norms before the mixer and before the experts, and the
+    ``moe``, with a row for every layer; each kind's mixers (``mamba``:
+    ``ssm.granite_params``, ``attention``: ``layers.attn_params``) with a
+    row for every layer of that kind. Each stacked leaf is allocated
+    once, as ``_stack``'s are."""
+    kinds = cfg.layer_kinds
+    if len(kinds) != cfg.n_layers or set(kinds) - set(LAYER_KINDS):
+        raise ValueError(f"layer_kinds must give one of {LAYER_KINDS} for "
+                         f"each of the {cfg.n_layers} layers: {kinds}")
+    out: Dict[Tuple, torch.Tensor] = {}
+    seen = dict.fromkeys(LAYER_KINDS, 0)
+    for i, kind in enumerate(kinds):
+        mixer = (SSM.granite_params(cfg, gen, dtype) if kind == "mamba"
+                 else L.attn_params(cfg, gen, dtype))
+        layer = {"mixer_norm_scale": L.zeros((cfg.d_model,), dtype),
+                 kind: mixer,
+                 "ffn_norm_scale": L.zeros((cfg.d_model,), dtype),
+                 "moe": MOE.moe_params(cfg, gen, dtype)}
+        for path, x in tree_flatten_with_path(layer):
+            row, n = ((seen[kind], kinds.count(kind)) if path[0] == kind
+                      else (i, len(kinds)))
+            if path not in out:
+                out[path] = x.new_empty((n,) + tuple(x.shape))
+            out[path][row].copy_(x)
+        seen[kind] += 1
+        del layer, mixer
     return tree_unflatten(list(out), list(out.values()))
 
 
@@ -249,8 +291,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         p["embed"] = L.normal(gen, (cfg.padded_vocab, dm), dtype)
         if cfg.family == "vlm":
             p["vision_proj"] = L.dense_init(gen, dm, dm, dtype)
-        p["layers"] = _stack(cfg, gen, cfg.n_layers, dtype, layer_role(cfg),
-                             keep.get("layers"))
+        p["layers"] = (_ssm_moe_stack(cfg, gen, dtype)
+                       if cfg.family == "ssm_moe" else
+                       _stack(cfg, gen, cfg.n_layers, dtype, layer_role(cfg),
+                              keep.get("layers")))
         p["final_norm"] = L.norm_params(cfg, dm, dtype)
         p["unembed"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
         p["local_head"] = L.dense_init(gen, dm, cfg.padded_vocab, dtype)
@@ -357,6 +401,60 @@ def _layer(cfg: ModelConfig, role: str, p, h, *, positions, causal, window,
     return (*ffn(cfg, role, p, h), ys)
 
 
+def _nope_attention(cfg: ModelConfig, p, x, positions):
+    """The ssm_moe family's causal GQA attention on the normed ``x``: no
+    position embedding, scores scaled by ``attention_multiplier``; the
+    blockwise loop from ``ATTN_BLOCKWISE_THRESHOLD`` on, else plain."""
+    q, k, v = L.project_qkv(cfg, p, x, x)
+    scale = cfg.attention_multiplier or None
+    if q.shape[1] >= L.ATTN_BLOCKWISE_THRESHOLD:
+        out = L.blockwise_attention(q, k, v, causal=True, scale=scale)
+    else:
+        mask = L.make_attn_mask(positions, positions, causal=True)
+        out = L.attention(q, k, v, mask=mask, scale=scale)
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def _ssm_moe_layer(cfg: ModelConfig, kind: str, p, mixer, h, positions):
+    """One ssm_moe layer: h + r·mixer(norm(h)), then h + r·(the held
+    experts' part + the shared expert)(norm(h)), r the
+    ``residual_multiplier``; returns (h, the router's balance term)."""
+    eps, r = cfg.rms_norm_eps, cfg.residual_multiplier
+    x = L.rmsnorm(h, p["mixer_norm_scale"], eps)
+    m = (SSM.granite_mix(cfg, mixer, x) if kind == "mamba"
+         else _nope_attention(cfg, mixer, x, positions))
+    h = h + m * r
+    y, aux = MOE.moe_apply(cfg, p["moe"], L.rmsnorm(h, p["ffn_norm_scale"],
+                                                    eps))
+    return h + y * r, aux
+
+
+def _run_ssm_moe(cfg: ModelConfig, stack: Params, h, *, positions,
+                 first: int):
+    """``run_stack`` for the ssm_moe family: row i of ``stack`` is layer
+    ``first + i``, of kind ``cfg.layer_kinds[first + i]``, and takes the
+    next row of that kind's mixer stack."""
+    n = stack_len(stack)
+    kinds = cfg.layer_kinds[first:first + n]
+    mixers = {k: iter(_rows(stack[k], kinds.count(k)))
+              for k in LAYER_KINDS if k in stack}
+    rows = _rows({k: v for k, v in stack.items() if k not in LAYER_KINDS},
+                 n)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
+    for kind, row in zip(kinds, rows):
+        layer = functools.partial(_ssm_moe_layer, cfg, kind,
+                                  positions=positions)
+        if remat:
+            h, a = checkpoint(layer, row, next(mixers[kind]), h,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, a = layer(row, next(mixers[kind]), h)
+        aux = aux + a
+    return h, aux
+
+
 def _row(tree, i: int):
     return {k: (_row(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
@@ -374,16 +472,22 @@ def _rows(tree, n: int):
 
 
 def stack_len(stack: Params) -> int:
-    leaves = tree_leaves(stack)
+    """The layers of a stack (an ssm_moe stack's kind stacks hold fewer
+    rows each)."""
+    leaves = tree_leaves({k: v for k, v in stack.items()
+                          if k not in LAYER_KINDS})
     return int(leaves[0].shape[0]) if leaves else 0
 
 
 def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
               causal: bool = False, window: int = 0, emit: bool = False,
-              role: str = None, enc_out=None):
+              role: str = None, enc_out=None, first: int = 0):
     """Apply every row of ``stack`` to ``h`` in order (the caller slices
     the depth window). ``role`` defaults to the config's ``layer_role``;
     the audio decoder passes "dec" and the encoder's output ``enc_out``.
+    ``first`` is the layer of the stack's first row (a server view's is
+    the split depth); only the ssm_moe family, whose layers differ by
+    kind, reads it, and it has no ``emit``.
     Returns (h, aux), and with ``emit`` (h, aux, ys): ys stacks each
     layer's cache entries along a leading L axis — the post-rope "k" and
     "v" [L, B, S, K, hd] of an attention layer, a decoder layer's
@@ -404,6 +508,11 @@ def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
         return sharded.run_stack(cfg, stack, h, causal=causal, window=window,
                                  emit=emit, role=role, enc_out=enc_out)
     role = role or layer_role(cfg)
+    if role == "ssm_moe":
+        if emit:
+            raise NotImplementedError("family='ssm_moe' has no decode "
+                                      "cache: serving is not ported")
+        return _run_ssm_moe(cfg, stack, h, positions=positions, first=first)
     use_rope = role in ("dense", "moe", "hybrid")
     remat = cfg.remat and not emit and torch.is_grad_enabled()
 
@@ -436,12 +545,14 @@ def run_stack(cfg: ModelConfig, stack: Params, h, *, positions,
 # ---------------------------------------------------------------- embeddings
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens):
-    """``embed[tokens]·√d_model``: the LM families' token embedding."""
+    """``embed[tokens]·√d_model`` (ssm_moe: times
+    ``embedding_multiplier``): the LM families' token embedding."""
     emb = params["embed"]
     # the reference's weak-typed scalar is rounded to the embedding's
     # dtype before the product, as this 0-d tensor is
-    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype,
-                         device=emb.device)
+    mult = (cfg.embedding_multiplier if cfg.family == "ssm_moe"
+            else math.sqrt(cfg.d_model))
+    scale = torch.tensor(mult, dtype=emb.dtype, device=emb.device)
     return emb[tokens.long()] * scale
 
 
@@ -504,6 +615,8 @@ def _head_logits(cfg: ModelConfig, params: Params, h):
         return pooled @ params["head"] + params["head_bias"]
     if cfg.is_encdec:
         return h @ params["embed"].T      # the decoder's head stays tied
+    if cfg.family == "ssm_moe":
+        return (h @ params["unembed"]) / cfg.logits_scaling
     return h @ params["unembed"]
 
 
@@ -519,6 +632,8 @@ def _norm(cfg: ModelConfig, p, h):
 def final_norm(cfg: ModelConfig, params: Params, h):
     """The LM families' last norm before the head (the audio decoder's
     ``dec_norm``)."""
+    if cfg.family == "ssm_moe":
+        return L.rmsnorm(h, params["final_norm"]["scale"], cfg.rms_norm_eps)
     return _norm(cfg, params["dec_norm" if cfg.is_encdec else
                              "final_norm"], h)
 
@@ -550,13 +665,10 @@ def decode_tokens(cfg: ModelConfig, params: Params, tokens, enc_out,
 
 
 def _causal(cfg: ModelConfig) -> bool:
-    return layer_role(cfg) in ("dense", "moe", "hybrid")
+    return layer_role(cfg) in ("dense", "moe", "hybrid", "ssm_moe")
 
 
 # --------------------------------------------------------- SuperSFL surfaces
-
-def _depth_slice(stack: Params, lo: int, hi: int = None) -> Params:
-    return tree_map(lambda x: x[lo:hi], stack)
 
 
 def client_apply(cfg: ModelConfig, client_params: Params, batch):
@@ -573,7 +685,7 @@ def prefix_apply(cfg: ModelConfig, params: Params, batch, d: int):
     tree -> smashed data."""
     view = dict(params)
     name = cfg.split_stack_name
-    view[name] = _depth_slice(params[name], 0, d)
+    view[name] = SN.depth_window(cfg, params[name], 0, d)
     return client_apply(cfg, view, batch)
 
 
@@ -592,6 +704,8 @@ def local_logits(cfg: ModelConfig, params: Params, z):
         return pooled @ params["local_head"] + params["local_head_bias"]
     if cfg.is_encdec:
         return z.mean(dim=1) @ params["local_head"]
+    if cfg.family == "ssm_moe":
+        return (z @ params["local_head"]) / cfg.logits_scaling
     return z @ params["local_head"]
 
 
@@ -640,8 +754,10 @@ def server_apply(cfg: ModelConfig, server_params: Params, z, batch):
         return (_head_logits(cfg, server_params,
                              final_norm(cfg, server_params, h)), aux + aux2)
     pos = torch.arange(z.shape[1], device=z.device).expand(z.shape[:2])
-    h, aux = run_stack(cfg, server_params["layers"], z, positions=pos,
-                       causal=_causal(cfg), window=cfg.sliding_window)
+    stack = server_params["layers"]
+    h, aux = run_stack(cfg, stack, z, positions=pos, causal=_causal(cfg),
+                       window=cfg.sliding_window,
+                       first=cfg.n_layers - stack_len(stack))
     if cfg.family != "vit":
         h = final_norm(cfg, server_params, h)
     return _head_logits(cfg, server_params, h), aux
@@ -651,7 +767,7 @@ def suffix_apply(cfg: ModelConfig, params: Params, z, batch, d: int):
     """Server-side forward from smashed data to logits: rows ``[d:]``."""
     sp = dict(params)
     name = cfg.split_stack_name
-    sp[name] = _depth_slice(params[name], d)
+    sp[name] = SN.depth_window(cfg, params[name], d)
     return server_apply(cfg, sp, z, batch)
 
 

@@ -18,9 +18,18 @@ The router's softmax, the top-k weights, ``combine`` and the balance
 statistics are fp32; the expert contractions run in the activation
 dtype, with ``layers.silu`` rounding each op as the reference does.
 
-``moe_route`` and ``moe_combine`` are the ``repro_torch.trace`` spans
-``moe.route`` and ``moe.experts``, in every forward run of a layer,
-remat's recomputations included.
+The ``ssm_moe`` family's layer holds a share of the experts, as a card
+does under expert parallelism: the router has ``router_experts`` outputs
+and routes over all of them (its top-k weights and the balance term
+too), while the layer holds and computes only experts ``[expert_offset,
+expert_offset + n_experts)``, which give their part of the sum; the
+other experts' parts are another card's. Its always-on shared SwiGLU
+(``p["shared"]``) is added whole. The other families hold every expert.
+
+``moe_route``, ``moe_combine`` and the shared expert are the
+``repro_torch.trace`` spans ``moe.route``, ``moe.experts`` and
+``moe.shared``, in every forward run of a layer, remat's recomputations
+included.
 """
 from __future__ import annotations
 
@@ -36,17 +45,39 @@ from repro_torch.trace import span
 MOE_TOKEN_CHUNK = 4096
 
 
+def n_routed(cfg: ModelConfig) -> int:
+    """The router's outputs: every expert of the layer, held here or
+    not."""
+    return cfg.router_experts if cfg.family == "ssm_moe" else cfg.n_experts
+
+
+def _held(cfg: ModelConfig, x):
+    """``x``'s last axis, one entry a router output, cut to the experts
+    held here."""
+    if cfg.family != "ssm_moe":
+        return x
+    return x[..., cfg.expert_offset:cfg.expert_offset + cfg.n_experts]
+
+
 def moe_params(cfg: ModelConfig, gen: torch.Generator, dtype):
-    """``router`` [dm, E]; ``w_gate``, ``w_up`` [E, dm, dff] and
-    ``w_down`` [E, dff, dm] (scale 0.02/√(2L)), drawn from ``gen``."""
+    """``router`` [dm, n_routed]; ``w_gate``, ``w_up`` [E, dm, dff] and
+    ``w_down`` [E, dff, dm] (scale 0.02/√(2L)) of the E experts held, and
+    the ssm_moe family's ``shared`` SwiGLU, drawn from ``gen``."""
     dm, dff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     down_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
-    return {
-        "router": L.dense_init(gen, dm, E, dtype),
+    p = {
+        "router": L.dense_init(gen, dm, n_routed(cfg), dtype),
         "w_gate": L.normal(gen, (E, dm, dff), dtype),
         "w_up": L.normal(gen, (E, dm, dff), dtype),
         "w_down": L.normal(gen, (E, dff, dm), dtype, down_scale),
     }
+    if cfg.family == "ssm_moe" and cfg.shared_expert_ff:
+        sff = cfg.shared_expert_ff
+        p["shared"] = {
+            "w_gate": L.dense_init(gen, dm, sff, dtype),
+            "w_up": L.dense_init(gen, dm, sff, dtype),
+            "w_down": L.dense_init(gen, sff, dm, dtype, down_scale)}
+    return p
 
 
 def top_k(x, k: int):
@@ -135,11 +166,11 @@ def expert_ffn(p, x):
 
 def _route_dense(cfg: ModelConfig, p, xt):
     """The dense dispatch's routing of a flat token chunk xt [T, dm]:
-    (combine [T, E] fp32, f_e, P_e)."""
+    (combine [T, E] fp32 over the experts held, f_e, P_e over all)."""
     probs, topv, topi = route(cfg, p, xt)
-    onehot = F.one_hot(topi, cfg.n_experts).float()          # [T,k,E]
+    onehot = F.one_hot(topi, n_routed(cfg)).float()          # [T,k,E]
     combine = torch.einsum("tke,tk->te", onehot, topv)
-    return combine, *_balance(onehot, probs)
+    return _held(cfg, combine), *_balance(onehot, probs)
 
 
 def _combine_dense(p, xt, combine):
@@ -153,12 +184,12 @@ def _route_gather(cfg: ModelConfig, p, xt):
     """The gather dispatch's routing of xt [T, dm]: each expert's
     top-``cap`` tokens by gate weight, (gate values [E, cap] fp32, their
     token indices [E, cap]), f_e, P_e."""
-    E, k = cfg.n_experts, cfg.top_k
+    E, k = n_routed(cfg), cfg.top_k
     T = xt.shape[0]
     cap = min(max(int(cfg.moe_capacity_factor * T * k / E), 1), T)
     probs, topv, topi = route(cfg, p, xt)
     onehot = F.one_hot(topi, E).float()
-    gate = torch.einsum("tke,tk->te", onehot, topv)
+    gate = _held(cfg, torch.einsum("tke,tk->te", onehot, topv))
     gval, gidx = top_k(gate.T, cap)                         # [E,cap]
     return torch.stack([gval, gidx.to(gval.dtype)]), *_balance(onehot,
                                                                probs)
@@ -212,8 +243,16 @@ def moe_combine(cfg: ModelConfig, p, xt, routed):
 
 
 def moe_aux(cfg: ModelConfig, f_e, P_e):
-    """The Switch load-balance term E·Σ f_e·P_e / k, fp32."""
-    return cfg.n_experts * torch.sum(f_e * P_e) / cfg.top_k
+    """The Switch load-balance term E·Σ f_e·P_e / k over all E router
+    outputs, fp32."""
+    return n_routed(cfg) * torch.sum(f_e * P_e) / cfg.top_k
+
+
+def shared_ffn(p, xt):
+    """The always-on shared SwiGLU on xt [T, dm]."""
+    with span("moe.shared"):
+        return torch.matmul(L.silu(xt @ p["w_gate"]) * (xt @ p["w_up"]),
+                            p["w_down"])
 
 
 def moe_apply(cfg: ModelConfig, p, x):
@@ -223,9 +262,12 @@ def moe_apply(cfg: ModelConfig, p, x):
     is a larger multiple of it (f_e and P_e then averaged over the
     chunks), else in one pass, as the reference's scan does: the expert
     intermediate is [E, chunk, d_ff], not [E, T, d_ff]. aux is the
-    Switch load-balance term, fp32."""
+    Switch load-balance term, fp32. A layer with a ``shared`` expert adds
+    its output."""
     B, S, dm = x.shape
     xt = x.reshape(B * S, dm)
     routed, f_e, P_e = moe_route(cfg, p, xt)
     y = moe_combine(cfg, p, xt, routed)
+    if "shared" in p:
+        y = y + shared_ffn(p["shared"], xt)
     return y.reshape(B, S, dm), moe_aux(cfg, f_e, P_e)

@@ -17,16 +17,39 @@ Casts follow the reference: the projections, the causal conv, ``silu``
 and ``dt = softplus(x·w_dt + dt_bias)`` run in the parameter dtype (bf16
 at full width); the scan and ``D`` in fp32; ``y`` goes back to the input
 dtype before the gate's ``rmsnorm``.
+
+The ``ssm_moe`` family (Granite-4.0-H) runs the published Mamba-2 mixer
+instead (``granite_params``, ``granite_mix``): one input projection to
+(z, x, B, C, dt), the causal conv over x, B and C together, and the gate
+applied to y before the gated RMS norm, in fp32 from the scan to the
+norm, as the source computes it. Its scan is ``ssd_chunks_at_once``, the
+chunked scan with every chunk at once (the same terms in a fixed number
+of operations: the chunk loop's launches pace the card at 4,096 rows).
+The form above (the conv over x alone, the norm before the gate, the
+chunk loop) stays the Mamba2 and Hymba families', which are held to the
+JAX package.
+
+Both mixers are the ``repro_torch.trace`` span ``ssm.mix``, and their
+scan with its ``D·x`` skip (the kernel, or a plain scan and the skip)
+the span ``ssm.scan`` inside it, in every forward run, remat's
+recomputations included. Their backward passes are bounded by the
+points ``ssm.mix.backward.begin`` and ``.end`` (``ssm.scan.backward.*``
+likewise): the output's gradient reached, and every input's and
+parameter's gradient computed.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as SS
-from repro_torch.kernels.ssd_scan.ref import DEFAULT_CHUNK, ssd_chunked
+from repro_torch.kernels.ssd_scan.ref import (DEFAULT_CHUNK, ssd_chunked,
+                                              ssd_chunks_at_once)
 from repro_torch.models import layers as L
+from repro_torch.trace import backward_point, span
 
 
 def ssm_params(cfg: ModelConfig, gen: torch.Generator, dtype):
@@ -75,8 +98,12 @@ def ssm_apply(cfg: ModelConfig, p, x_in, *, chunk: int = DEFAULT_CHUNK,
     """Full Mamba2 mixer on [B,S,dm] -> [B,S,dm] (the prefill path); with
     ``return_state`` also the final state h [B,nh,hd,st] (fp32) and the
     conv tail [B,k-1,d_inner] for the cache."""
-    y, z, h_final, xs_raw = ssm_mix(cfg, p, x_in, chunk=chunk)
-    out = ssm_out(p, y, z)
+    with span("ssm.mix"):
+        x_in, *leaves = backward_point("ssm.mix.backward.end", x_in,
+                                       *p.values())
+        p = dict(zip(p, leaves))
+        y, z, h_final, xs_raw = ssm_mix(cfg, p, x_in, chunk=chunk)
+        out = backward_point("ssm.mix.backward.begin", ssm_out(p, y, z))
     if return_state:
         return out, h_final, conv_tail(cfg, xs_raw)
     return out
@@ -110,12 +137,68 @@ def ssm_mix(cfg: ModelConfig, p, x_in, *, chunk: int = DEFAULT_CHUNK,
                p["D"].float())
     recording = torch.is_grad_enabled() and any(t.requires_grad
                                                 for t in scan_in)
-    if cfg.use_pallas and not recording:
-        y, h_final = SS.ssd_scan(*scan_in)
-    else:
-        y, h_final = ssd_chunked(*scan_in[:5], chunk=chunk)
-        y = y + xh.float() * p["D"].float()[None, None, :, None]
+    with span("ssm.scan"):
+        if cfg.use_pallas and not recording:
+            y, h_final = SS.ssd_scan(*scan_in)
+        else:
+            scan_in = backward_point("ssm.scan.backward.end", *scan_in)
+            y, h_final = ssd_chunked(*scan_in[:5], chunk=chunk)
+            y = y + scan_in[0] * scan_in[5][None, None, :, None]
+            y = backward_point("ssm.scan.backward.begin", y)
     return y.reshape(Bsz, S, nh * hd).to(x_in.dtype), z, h_final, xs_raw
+
+
+def granite_params(cfg: ModelConfig, gen: torch.Generator, dtype):
+    """The published mixer's leaves: ``w_in`` [dm, 2·d_inner + 2·state +
+    nh] (z, x, B, C, dt in that order, one group), ``conv_w`` [k, d_inner
+    + 2·state] and ``conv_b``, ``dt_bias`` (dt 0.01), ``A_log`` (A = 1 ..
+    nh), ``D``, ``gate_norm_scale`` (scale − 1) and ``w_out``."""
+    dm, din = cfg.d_model, cfg.ssm_d_inner
+    nh, st, k = cfg.ssm_n_heads, cfg.ssm_state, cfg.ssm_conv_dim
+    return {
+        "w_in": L.dense_init(gen, dm, 2 * din + 2 * st + nh, dtype),
+        "conv_w": L.normal(gen, (k, din + 2 * st), dtype, scale=0.1),
+        "conv_b": L.zeros((din + 2 * st,), dtype),
+        "dt_bias": torch.log(torch.expm1(torch.full((nh,), 0.01))).to(dtype),
+        "A_log": torch.log(torch.arange(1, nh + 1,
+                                        dtype=torch.float32)).to(dtype),
+        "D": L.ones((nh,), dtype),
+        "gate_norm_scale": L.zeros((din,), dtype),
+        "w_out": L.dense_init(gen, din, dm, dtype,
+                              scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def granite_mix(cfg: ModelConfig, p, x_in, *, chunk: int = DEFAULT_CHUNK):
+    """The published Mamba-2 mixer on [B,S,dm] -> [B,S,dm]: the projection
+    and the conv in the parameter dtype, ``dt = softplus(dt + dt_bias)``,
+    the scan (every chunk at once), ``D·x``, the gate ``silu(z)`` and the
+    gated RMS norm (eps ``cfg.rms_norm_eps``, over the whole d_inner) in
+    fp32, then ``w_out``."""
+    din, st = cfg.ssm_d_inner, cfg.ssm_state
+    nh, hd = cfg.ssm_n_heads, cfg.ssm_head_dim
+    with span("ssm.mix"):
+        x_in, *leaves = backward_point("ssm.mix.backward.end", x_in,
+                                       *p.values())
+        p = dict(zip(p, leaves))
+        z, xbc, dt = (x_in @ p["w_in"]).split([din, din + 2 * st, nh], -1)
+        xbc = F.silu(causal_conv(xbc, p["conv_w"], p["conv_b"]))
+        xs, B, C = xbc.split([din, st, st], -1)
+        dt = F.softplus((dt + p["dt_bias"]).float())
+        A = -torch.exp(p["A_log"].float())
+        Bsz, S = x_in.shape[:2]
+        xh = xs.reshape(Bsz, S, nh, hd).float()
+        with span("ssm.scan"):
+            xh, dt, A, B, C, D = backward_point(
+                "ssm.scan.backward.end", xh, dt, A, B.float(), C.float(),
+                p["D"].float())
+            y, _ = ssd_chunks_at_once(xh, dt, A, B, C, chunk=chunk)
+            y = backward_point("ssm.scan.backward.begin",
+                               y + xh * D[None, None, :, None])
+        g = y.reshape(Bsz, S, din) * F.silu(z.float())
+        y = L.rmsnorm(g, p["gate_norm_scale"], cfg.rms_norm_eps)
+        return backward_point("ssm.mix.backward.begin",
+                              y.to(x_in.dtype) @ p["w_out"])
 
 
 def ssm_out(p, y, z, var=None):

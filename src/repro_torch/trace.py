@@ -17,10 +17,23 @@ The recorder is called from whichever thread runs the span: on CUDA,
 autograd's device thread runs the backward passes, and remat's
 recomputed forwards inside them, while the calling thread waits, so the
 calls still come one at a time and nest.
+
+A span holds the operations its body queues, and a region's backward
+runs later, outside it. ``backward_point(name, *xs)`` marks where the
+backward pass crosses a region's edge: it returns ``xs`` unchanged, and
+where a recorder is installed and autograd records, the backward pass
+records the empty span ``name`` (a ``begin`` and its ``end`` at once)
+when it has all the gradients of ``xs``. A region's output passed
+through ``backward_point("<region>.backward.begin", y)`` and every
+tensor that enters it through ``backward_point("<region>.backward.end",
+...)`` bound its backward; being empty, the points nest anywhere, and
+with no recorder nothing is added to the graph.
 """
 from __future__ import annotations
 
 import contextlib
+
+import torch
 
 _NULL = contextlib.nullcontext()
 _recorder = None
@@ -52,3 +65,30 @@ def install(recorder) -> None:
     recording."""
     global _recorder
     _recorder = recorder
+
+
+class _Point(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, name, *xs):
+        ctx.name = name
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rec = _recorder
+        if rec is not None:
+            rec.begin(ctx.name)
+            rec.end(ctx.name)
+        return (None,) + grads
+
+
+def backward_point(name: str, *xs):
+    """``xs`` (one tensor: that tensor), passed through a point whose
+    backward records the empty span ``name`` once it has every gradient
+    of ``xs``; unchanged where no recorder is installed or none of them
+    records a gradient."""
+    if _recorder is None or not torch.is_grad_enabled() \
+            or not any(x.requires_grad for x in xs):
+        return xs[0] if len(xs) == 1 else xs
+    out = _Point.apply(name, *xs)
+    return out[0] if len(xs) == 1 else out

@@ -266,3 +266,25 @@ def test_marker_recorder_adds_no_host_synchronisation():
     for name, _ in sink.spans():
         counts[name] = counts.get(name, 0) + 1
     assert counts == expected_counts(cfg)
+
+
+def test_backward_point_marks_the_backward_and_adds_nothing_unrecorded():
+    x = torch.randn(4, requires_grad=True)
+    w = torch.randn(4, requires_grad=True)
+    trace.install(None)
+    assert trace.backward_point("r.backward.end", x) is x
+    s = Sink()
+    trace.install(s)
+    try:
+        with torch.no_grad():
+            assert trace.backward_point("r.backward.end", x) is x
+        a, b = trace.backward_point("r.backward.end", x, w)
+        with trace.span("r"):
+            y = trace.backward_point("r.backward.begin", (a * b).sin())
+        y.sum().backward()
+    finally:
+        trace.install(None)
+    # the forward span, then the backward's two empty spans in order
+    assert [n for n, _ in s.spans()] == ["r", "r.backward.begin",
+                                         "r.backward.end"]
+    assert torch.equal(x.grad, torch.cos(x * w) * w)
