@@ -37,12 +37,15 @@ Phases, one JSON line each (plus the card's name and power limit as
   4. main path — full-width ViT-16-CIFAR trained by ``ssfl`` for two rounds
      through ``repro_torch.federated.Engine`` with the kernels on
      (``use_pallas=True``), then evaluated with the global head and the
-     local ensemble; ``fuse`` and ``aggregate`` must launch. The same run
-     with the kernels off must agree (round losses and final parameters
-     within 1e-4). A profiled extra round reports device time by kernel;
-     the path's line carries ``counted_flops`` (``count_flops`` of one
-     round, on a copy of the engine) and ``mfu``, its share of the fp32
-     peak over the same round's wall, beside the card's name and limit;
+     local ensemble; ``sumsq``, ``fuse`` and ``aggregate`` must launch.
+     The same run with the kernels off, and TPGF's Phase 3 through the
+     plain chain (on the card it runs ``sumsq`` and ``fuse`` whatever
+     ``use_pallas`` says, here and on every TPGF path below), must agree
+     (round losses and final parameters within 1e-4) and launch nothing.
+     A profiled extra round reports device time by kernel; the path's line carries
+     ``counted_flops`` (``count_flops`` of one round, on a copy of the
+     engine) and ``mfu``, its share of the fp32 peak over the same
+     round's wall, beside the card's name and limit;
   4a. fleet mesh path — the main path's fleet, seed and settings on a
      fleet mesh (``Engine(mesh=launch.mesh.make_fleet_mesh(R))``), two
      rounds, kernels on. One NCCL rank in this process: bit for bit the
@@ -65,8 +68,8 @@ Phases, one JSON line each (plus the card's name and power limit as
      after the environment and build phases;
   5. width path — the same fleet on the width ladder (0.25, 0.5, 0.75,
      1.0) with ``cross_tier="fused"``: two mixed-width cohorts, so
-     ``fuse``, ``aggregate`` and ``tier_sum`` must launch; kernels off
-     must agree within 1e-4; both heads evaluate; a profiled round;
+     ``sumsq``, ``fuse``, ``aggregate`` and ``tier_sum`` must launch;
+     kernels off must agree within 1e-4; both heads evaluate; a profiled round;
   6. clip path — ``fuse_tree(tau=0.5)`` (the Phase-1 clip fused into
      Eq. 4) over the depth-10 client's gradient shapes: ``sumsq`` and
      ``fuse`` must launch, and the result must match
@@ -93,9 +96,10 @@ Phases, one JSON line each (plus the card's name and power limit as
      evaluated, the server slot named; one profiled round of ``fedavg``
      and of ``fedadam``;
   9. scenario path — the main path's fleet under the scenario strategies,
-     two rounds each with the kernels on, then off (within 1e-4, nothing
-     launched): ``unstable`` at its defaults (Markov participation,
-     staleness-weighted Eq. 6/8; ``fuse`` and ``aggregate`` must launch;
+     two rounds each with the kernels on, then off with the plain Phase 3
+     (within 1e-4, nothing launched): ``unstable`` at its defaults (Markov
+     participation, staleness-weighted Eq. 6/8; ``sumsq``, ``fuse`` and
+     ``aggregate`` must launch;
      each round's participants and staleness printed),
      ``async_buffered`` with a capacity-3 FedBuff buffer, ``"count"``
      flushes and a ``fedadam`` server at lr 1e-3 (``fuse`` and
@@ -174,31 +178,39 @@ Phases, one JSON line each (plus the card's name and power limit as
      1), through ``make_train_step`` with its config (bf16, remat, 4
      microbatches, AdamW with fp32 moments), 3 steps of 8 × 512 with the
      kernels off (flash has no backward): finite losses, the prefix's
-     router aux finite and positive, no kernel launch; step wall,
+     router aux finite and positive, ``sumsq`` and ``fuse`` once per
+     client leaf and microbatch (Phase 3 on the card) and no other
+     launch; step wall,
      tokens/s, peak memory, a profiled step. These phases' launches
      get a line each, their seconds a ``phase_time`` line each;
  18. audio train path — Whisper-small whole through ``launch/train.py``'s
      loop with its config (bf16, remat, AdamW with fp32 moments), 3 steps
      of 8 × 448 decoder tokens over zero frames, kernels off: finite
-     losses, no launch, ``make_train_step`` refusing ``use_pallas=True``;
+     losses, ``sumsq`` and ``fuse`` once per client leaf and no other
+     launch, ``make_train_step`` refusing ``use_pallas=True``;
      step wall, tokens/s, peak memory, a profiled step;
  19. lm train path — Mamba2-2.7B at full width and depth trained by
      ``launch.steps.make_train_step`` with its config (bf16, remat, 4
      microbatches, AdamW with fp32 moments), 3 steps of 8 × 512 tokens
      from ``synthetic_lm_batches``, the serving weights freed first, with
-     the kernels on: Eq. 4 runs ``fuse`` on the bf16 client gradients,
-     once per client leaf and microbatch, and no other kernel may launch
-     (the scan records a gradient, so it takes ``ssd_chunked``). The
-     gate on the kernel: the first microbatch's fused client gradient,
-     kernels on vs off, within one bf16 ulp elementwise, the losses
-     equal. Then the same steps with the kernels off from the same
-     weights: step-1 losses bit for bit, later ones within
-     ``TRAIN_LOSS_RTOL``. Step wall, tokens/s, peak memory, a profiled
-     step;
+     the kernels on: Phase 3 runs ``sumsq`` and ``fuse`` on the bf16
+     client gradients, once each per client leaf and microbatch, and no
+     other kernel may launch (the scan records a gradient, so it takes
+     ``ssd_chunked``). The gate on the kernels: the first microbatch's
+     fused client gradient (``sumsq`` and ``fuse``, one rounding) against
+     the plain chain (``clip_by_global_l2``, then ``fuse_gradients``) on
+     the same gradients, within the plain chain's extra rounding (one
+     ulp of the result plus ``w`` times one of the clipped term), no
+     farther in all from the fp32 Eq. 4, and the same bits on a second
+     call. Then the same steps with the kernels off and Phase 3 through
+     the plain chain, from the same weights, launching nothing: step-1
+     losses bit for bit, later ones within ``TRAIN_LOSS_RTOL``. Step wall, tokens/s, peak memory,
+     a profiled step;
  20. dense train path — Llama-3.2-3B at full width and depth trained
      through ``launch/train.py``'s config and loop (one microbatch,
      bf16, remat, ``adamw(1e-3)``) with the kernels off, 3 steps of
-     8 × 512: finite losses, no kernel launch, the same figures;
+     8 × 512: finite losses, ``sumsq`` and ``fuse`` once per client leaf
+     and no other launch, the same figures;
  21. lm mesh path — the LM families' sharded path (``models/sharded.py``)
      on a one-rank NCCL mesh of shape (1, 1) (``launch.mesh.
      make_test_mesh``), each against the meshless run of the same seed:
@@ -206,9 +218,12 @@ Phases, one JSON line each (plus the card's name and power limit as
      fed the meshless run's tokens (``flash_attention`` 28 times, in each
      attention region's ``local_map``), then Mamba2-2.7B at 4 of its 64
      layers, a prefill (``ssd_scan`` 4 times) and a train step (``fuse``
-     on the gradient shards). Bit for bit is expected and reported; the
-     gates are the launch counts, equal, and the serve and train limits
-     (``BF16_LOGIT_TOL``, ``TRAIN_LOSS_RTOL``). ``python3 chip_smoke.py
+     on the gradient shards, after the plain clip a sharded norm needs;
+     the meshless step runs ``sumsq`` and ``fuse``, one rounding, so its
+     parameters part from the mesh's by that rounding). Bit for bit is
+     reported; the gates are the launch counts (``fuse`` and the flag's
+     kernels equal) and the serve and train limits (``BF16_LOGIT_TOL``,
+     ``TRAIN_LOSS_RTOL``). ``python3 chip_smoke.py
      --lm-mesh`` on a machine of four cards runs, after the environment
      and build phases, the one-card runs on card 0 and then one NCCL rank
      a card (the script started again, ``--lm-rank <r> <world> <dir>``,
@@ -233,9 +248,10 @@ Phases, one JSON line each (plus the card's name and power limit as
  22. the ``kernels`` summary line (seven rows: the six kernels and
      ``aggregate``'s numerator mode, whose launches are the fleet mesh
      path's, summed over its ranks); each kernel's ``launches`` come from
-     the path named beside it (counts set to 0 just before that path),
-     and ``also_on`` lists their launches on the scenario paths, the
-     moe, vlm and audio paths and the lm mesh path; the training paths'
+     the path named beside it (counts set to 0 just before that path;
+     ``sumsq``'s from the main path's Phase 3), and ``also_on`` lists
+     their launches on the clip path, the scenario paths, the moe, vlm
+     and audio paths and the lm mesh path; the training paths'
      launches get a line of their own.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -244,6 +260,7 @@ directory that holds this script without the port beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -1076,14 +1093,62 @@ def _counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+# TPGF's Phase 3 runs these on the card whatever ``use_pallas`` says
+# (``core.tpgf.clip_and_fuse``); the flag selects every other kernel
+PHASE3_KERNELS = ("sumsq", "fuse")
+
+
+@contextlib.contextmanager
+def _plain_phase3():
+    """While inside, TPGF's Phase 3 takes the plain chain
+    (``clip_by_global_l2``, then ``fuse_gradients`` under the step's
+    flag), as it does off the card: a run with the kernels off then
+    launches no kernel, and holds ``sumsq`` and ``fuse`` against the plain
+    route too."""
+    from repro_torch.core import tpgf as T
+    inner = T.clip_and_fuse
+
+    def plain(g_local, g_server, w, tau, *, use_pallas=False):
+        clipped, _ = T.clip_by_global_l2(g_local, tau)
+        return T.fuse_gradients(clipped, g_server, w, use_pallas=use_pallas)
+
+    T.clip_and_fuse = plain
+    try:
+        yield
+    finally:
+        T.clip_and_fuse = inner
+
+
+def _flag_counts(counts=None):
+    """The launch counts of the kernels that ``use_pallas`` selects."""
+    counts = _counts() if counts is None else counts
+    return {k: v for k, v in counts.items() if k not in PHASE3_KERNELS}
+
+
+def _check_train_launches(name, cfg, params, launches, steps):
+    """A train path's launches: ``sumsq`` and ``fuse`` once each per
+    non-empty client leaf and microbatch of ``steps`` steps, and no other
+    kernel (flash has no backward, and a scan under autograd takes the
+    plain version)."""
+    from repro_torch.core.supernet import split_params
+    from repro_torch.tree import tree_leaves
+    client = split_params(cfg, params, cfg.resolved_split_depth)[0]
+    n = steps * max(cfg.microbatches, 1) * sum(
+        1 for x in tree_leaves(client) if x.numel())
+    want = {k: n if k in PHASE3_KERNELS else 0 for k in launches}
+    if launches != want:
+        die(f"{name}: {steps} steps launched {launches}, expected {want}")
+
+
 def phase_path(name, must_launch, forbidden=(), describe=None,
                same_round=False, count_flops=False, **engine_kw):
     """Train the fleet two rounds with the kernels on, every launch count
     set to 0 just before and read just after (each kernel of
     ``must_launch`` must have launched, none of ``forbidden``); then the
-    same run with the kernels off, which must launch nothing and agree
-    within 1e-4; then a profiled round. ``describe(engine)`` adds entries
-    to each round's line. ``same_round``: the profiled round's idle share
+    same run with the kernels off and Phase 3 through the plain chain
+    (``_plain_phase3``), which must launch nothing and agree within 1e-4;
+    then a profiled round. ``describe(engine)`` adds entries to each
+    round's line. ``same_round``: the profiled round's idle share
     is taken against the wall of the SAME round run unprofiled on a copy
     of the engine (a participation process gives every round other
     clients, so the last round's wall does not measure it).
@@ -1133,7 +1198,8 @@ def phase_path(name, must_launch, forbidden=(), describe=None,
 
     # the same run through the plain versions must agree
     _zero_counts()
-    plain, precs = _run(cfg, f"{name}/plain", describe, **engine_kw)
+    with _plain_phase3():
+        plain, precs = _run(cfg, f"{name}/plain", describe, **engine_kw)
     if any(_counts().values()):
         die(f"{name}: use_pallas=False still launched a kernel: "
             f"{_counts()}")
@@ -1749,7 +1815,12 @@ def phase_lm_mesh_path():
             get_config(SERVE_ARCH).n_layers:
         die(f"lm_mesh_path: Llama launched {llama['launches']}")
     pre, tr = mamba["prefill_launches"], mamba["train_launches"]
-    if pre["mesh"] != pre["meshless"] or tr["mesh"] != tr["meshless"] or \
+    # sharded gradients clip plainly and reach fuse through local_map;
+    # the meshless step runs sumsq too
+    if pre["mesh"] != pre["meshless"] or \
+            _flag_counts(tr["mesh"]) != _flag_counts(tr["meshless"]) or \
+            tr["mesh"]["fuse"] != tr["meshless"]["fuse"] or \
+            tr["meshless"]["sumsq"] != tr["meshless"]["fuse"] or \
             pre["mesh"]["ssd_scan"] != LM_MESH_SSM_LAYERS or \
             tr["mesh"]["fuse"] <= 0:
         die(f"lm_mesh_path: Mamba2 launched {pre}, {tr}")
@@ -2215,13 +2286,14 @@ def phase_scenario_path():
     from repro_torch.federated import buffer as BUF
     from repro_torch.tree import tree_leaves
     launches = {}
-    off_path = ("sumsq", "flash_attention", "ssd_scan")
+    off_path = ("flash_attention", "ssd_scan")
     for name, must, describe, kw in (
-            ("unstable", ("fuse", "aggregate"), _staleness_line,
+            ("unstable", ("sumsq", "fuse", "aggregate"), _staleness_line,
              dict(strategy="unstable")),
-            ("async_buffered", ("fuse", "aggregate"), _buffer_line,
+            ("async_buffered", ("sumsq", "fuse", "aggregate"), _buffer_line,
              dict(strategy=_async_fedadam)),
-            ("hasfl", ("fuse", "aggregate", "tier_sum"), _tuned_line,
+            ("hasfl", ("sumsq", "fuse", "aggregate", "tier_sum"),
+             _tuned_line,
              dict(strategy=_hasfl_ladder, cross_tier="fused"))):
         path = f"scenario_path_{name}"
         forbidden = off_path if "tier_sum" in must \
@@ -2827,6 +2899,37 @@ def _ulp_gate(got, want):
     return worst, differ / n
 
 
+def _phase3_gate(fused, plain, g_local, g_server, w, cs):
+    """Phase 3's kernels (``fused``: Eq. 4 with the clip scale ``cs``
+    inside, rounded once) against the plain chain (``plain``: the clipped
+    gradient rounded, then Eq. 4) over trees of bf16 leaves, within
+    ``ref.plain_chain_bound``. Returns (all within that, elements more than one ulp of the
+    result apart, share of elements that differ, the largest gap over its
+    bound, Σ|fused − fp32 Eq. 4|, Σ|plain − fp32 Eq. 4|)."""
+    from repro_torch.kernels.tpgf_fusion import ref as R
+    from repro_torch.tree import tree_flatten_with_path
+    ok, beyond, differ, n, worst, err_k, err_p = True, 0, 0, 0, 0.0, 0., 0.
+    for (_, k), (_, p), (_, a), (_, b) in zip(
+            tree_flatten_with_path(fused), tree_flatten_with_path(plain),
+            tree_flatten_with_path(g_local),
+            tree_flatten_with_path(g_server)):
+        if not k.numel():
+            continue
+        kf, pf = k.float(), p.float()
+        exact = R.eq4_fp32(a, b, w, cs)
+        one = R.bf16_ulp(kf).maximum(R.bf16_ulp(pf))
+        gap = (kf - pf).abs()
+        bound = R.plain_chain_bound(k, p, a, w, cs)
+        ok &= bool((gap <= bound).all())
+        worst = max(worst, float((gap / bound).max()))
+        beyond += int((gap > one).sum())
+        differ += int((gap > 0).sum())
+        n += k.numel()
+        err_k += float((kf - exact).abs().sum())
+        err_p += float((pf - exact).abs().sum())
+    return ok, beyond, differ / n, worst, err_k, err_p
+
+
 def _train_run(cfg, step_fn, opt, name, steps, seq=TRAIN_SEQ):
     """``steps`` steps of ``step_fn`` on batches of TRAIN_BATCH × ``seq``
     from seed-0 weights on the card, each timed after
@@ -2872,18 +2975,23 @@ def _train_run(cfg, step_fn, opt, name, steps, seq=TRAIN_SEQ):
 def phase_lm_train_path(arch):
     """Mamba2-2.7B at full width and depth trained by ``make_train_step``
     (bf16, remat, 4 microbatches, AdamW with the config's moment dtype)
-    with the kernels on: Eq. 4 runs the ``fuse`` kernel on the bf16
-    client gradients (4 launches a microbatch per client leaf) and no
+    with the kernels on: Phase 3 runs ``sumsq`` and ``fuse`` on the bf16
+    client gradients (4 launches each a step per client leaf) and no
     other kernel may launch (the scan records a gradient, so it takes
-    ``ssd_chunked``). Gate on the kernel: the first microbatch's fused
-    client gradient with the kernels on vs off within one bf16 ulp
-    elementwise (and the losses equal). Then the same steps with the
-    kernels off from the same weights: step-1 losses bit for bit, later
-    ones within TRAIN_LOSS_RTOL; a profiled step."""
+    ``ssd_chunked``). Gate on the kernels: the first microbatch's fused
+    client gradient against the plain chain (``clip_by_global_l2``, then
+    ``fuse_gradients``) on the same gradients within the plain chain's
+    extra rounding (``_phase3_gate``), no farther in all from the fp32
+    Eq. 4, and the same bits on a second call. Then the same steps
+    with the kernels off and Phase 3 through the plain chain
+    (``_plain_phase3``), launching nothing, from the same weights:
+    step-1 losses bit for bit, later ones within TRAIN_LOSS_RTOL; a
+    profiled step."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core import supernet as SN
     from repro_torch.core import tpgf as T
+    from repro_torch.kernels.tpgf_fusion import ops as O
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import device_batches
     from repro_torch.models.model import init_params, param_count
@@ -2896,44 +3004,61 @@ def phase_lm_train_path(arch):
     n_params = param_count(params)
     batch = next(device_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, 1, "cuda"))
     mb0 = {k: v[:TRAIN_BATCH // mb] for k, v in batch.items()}
-    gate, gate_launches = {}, {}
-    for label, on in (("on", True), ("off", False), ("off_again", False)):
-        c = cfg.replace(use_pallas=on)
-        client, server, local = SN.split_params(c, params, d)
-        _zero_counts()
-        out = T.tpgf_grads_split(c, c, client, server, local, mb0, d)
+    calls, inner = [], T.clip_and_fuse
+
+    def watched(*args, **kwargs):
+        calls.append(args)
+        return inner(*args, **kwargs)
+
+    T.clip_and_fuse = watched
+    _zero_counts()
+    try:
+        out = T.tpgf_grads_split(cfg, cfg, *SN.split_params(cfg, params, d),
+                                 mb0, d)
         torch.cuda.synchronize()
-        gate_launches[label] = _counts()
-        gate[label] = (out.g_client, float(out.loss_client),
-                       float(out.loss_server), float(out.w_client))
-        del out, client, server, local
-    n_leaves = len(tree_leaves(gate["on"][0]))
+    finally:
+        T.clip_and_fuse = inner
+    gate_launches = _counts()
+    gl, gs, w, tau = calls[0]
+    fused = out.g_client
+    losses = [float(out.loss_client), float(out.loss_server),
+              float(out.w_client)]
+    del out, calls
+    again = O.fuse_tree(gl, gs, w.float(), tau=tau)
+    clipped, norm = T.clip_by_global_l2(gl, tau)
+    cs = torch.clamp(tau / (norm + 1e-12), max=1.0)
+    plain = T.fuse_gradients(clipped, gs, w)
+    del clipped
+    n_leaves = len(tree_leaves(fused))
     finite = all(bool(torch.isfinite(x).all()) for x in
-                 tree_leaves(gate["on"][0])) and all(
-        math.isfinite(v) for v in gate["on"][1:])
+                 tree_leaves(fused)) and all(map(math.isfinite, losses))
     if not finite:
         die("lm_train_path gate: the fused client gradient or a loss is "
             "not finite")
-    worst, share = _ulp_gate(gate["on"][0], gate["off"][0])
-    det_worst, det_share = _ulp_gate(gate["off"][0], gate["off_again"][0])
-    same_losses = gate["on"][1:] == gate["off"][1:]
+    ok, beyond, share, worst, err_k, err_p = _phase3_gate(
+        fused, plain, gl, gs, w, cs)
+    det_worst, det_share = _ulp_gate(fused, again)
     emit({"phase": "lm_train_gate", "config": cfg.name,
           "split_depth": d, "client_leaves": n_leaves,
-          "launches_kernels_on": gate_launches["on"],
-          "losses_on": gate["on"][1:], "losses_off": gate["off"][1:],
-          "losses_equal": same_losses,
-          "fused_client_grad_max_bf16_ulps": worst,
+          "launches_kernels_on": gate_launches, "losses": losses,
+          "clip_scale": float(cs), "within_rounding": ok,
+          "gap_over_bound_max": worst,
+          "elements_beyond_one_ulp": beyond,
           "fused_client_grad_share_differing": share,
-          "plain_vs_plain_max_bf16_ulps": det_worst,
-          "plain_vs_plain_share_differing": det_share})
-    if gate_launches["on"]["fuse"] != n_leaves or any(
-            v for k, v in gate_launches["on"].items() if k != "fuse"):
-        die(f"lm_train_path gate: launches {gate_launches['on']}, expected "
-            f"fuse {n_leaves} and nothing else")
-    if not same_losses or worst > 1:
-        die(f"lm_train_path gate: kernels on vs off: losses equal "
-            f"{same_losses}, fused client gradient {worst} bf16 ulps apart")
-    del gate, params
+          "abs_err_vs_fp32_kernels": err_k, "abs_err_vs_fp32_plain": err_p,
+          "repeat_max_bf16_ulps": det_worst,
+          "repeat_share_differing": det_share})
+    want = {k: n_leaves if k in PHASE3_KERNELS else 0
+            for k in gate_launches}
+    if gate_launches != want:
+        die(f"lm_train_path gate: launches {gate_launches}, expected "
+            f"{want}")
+    if not ok or err_k > err_p or det_worst:
+        die(f"lm_train_path gate: the kernels' fused client gradient is "
+            f"{worst} of the plain chain's rounding from it (limit 1), "
+            f"{err_k} from the fp32 Eq. 4 against the plain chain's "
+            f"{err_p}, {det_worst} bf16 ulps from its own second call")
+    del gl, gs, w, fused, again, plain, params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2942,15 +3067,14 @@ def phase_lm_train_path(arch):
         c = cfg.replace(use_pallas=on)
         step_fn, opt = make_train_step(c)
         name = f"lm_train_path/{'kernels' if on else 'plain'}"
-        params, opt_state, recs, launches, peak_gb, last = _train_run(
-            c, step_fn, opt, name, TRAIN_STEPS)
+        with contextlib.nullcontext() if on else _plain_phase3():
+            params, opt_state, recs, launches, peak_gb, last = _train_run(
+                c, step_fn, opt, name, TRAIN_STEPS)
         runs[on] = recs
+        if not on and any(launches.values()):
+            die(f"{name}: kernels off launched {launches}")
         if on:
-            want = {k: 0 for k in launches}
-            want["fuse"] = TRAIN_STEPS * mb * n_leaves
-            if launches != want:
-                die(f"lm_train_path: {TRAIN_STEPS} steps launched "
-                    f"{launches}, expected {want}")
+            _check_train_launches(name, c, params, launches, TRAIN_STEPS)
             walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
             wall_ms = statistics.median(walls)
             emit({"phase": "lm_train_path", "config": cfg.name,
@@ -2966,8 +3090,6 @@ def phase_lm_train_path(arch):
                   "peak_mem_gb": peak_gb})
             _profile(lambda: step_fn(params, opt_state, last),
                      wall_ms / 1e3, "lm_train")
-        elif any(launches.values()):
-            die(f"lm_train_path: kernels off launched {launches}")
         del params, opt_state, step_fn, opt, last
         gc.collect()
         torch.cuda.empty_cache()
@@ -2982,15 +3104,16 @@ def phase_lm_train_path(arch):
     if not step1_equal or any(r > TRAIN_LOSS_RTOL for r in rel):
         die(f"lm_train_path: kernels on vs off: step 1 equal "
             f"{step1_equal}, later steps {rel} (limit {TRAIN_LOSS_RTOL})")
-    return {"fuse": TRAIN_STEPS * mb * n_leaves}
+    return {k: TRAIN_STEPS * mb * n_leaves for k in PHASE3_KERNELS}
 
 
 def phase_dense_train_path(arch):
     """Llama-3.2-3B at full width and depth trained through
     ``launch/train.py``'s config and loop (one microbatch, bf16, remat,
     ``adamw(1e-3)``) with the kernels off, as the reference can only
-    train it: finite losses, no kernel launch, step wall, tokens/s, peak
-    memory, a profiled step."""
+    train it: finite losses, ``sumsq`` and ``fuse`` once per client leaf
+    and no other launch, step wall, tokens/s, peak memory, a profiled
+    step."""
     import torch
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train_config
@@ -3000,8 +3123,8 @@ def phase_dense_train_path(arch):
     step_fn, opt = make_train_step(cfg, adamw(1e-3))
     params, opt_state, recs, launches, peak_gb, last = _train_run(
         cfg, step_fn, opt, "dense_train_path", TRAIN_STEPS)
-    if any(launches.values()):
-        die(f"dense_train_path: a kernel launched: {launches}")
+    _check_train_launches("dense_train_path", cfg, params, launches,
+                          TRAIN_STEPS)
     walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
     wall_ms = statistics.median(walls)
     n_params = param_count(params)
@@ -3025,7 +3148,8 @@ def phase_moe_train_path(arch, layers):
     depth 1), trained by ``make_train_step`` with its config (bf16, remat,
     4 microbatches, AdamW with fp32 moments) with the kernels off (the
     family has attention, and flash has no backward): 3 steps of 8 × 512,
-    finite losses, no kernel launch, then the first microbatch's TPGF
+    finite losses, Phase 3's ``sumsq`` and ``fuse`` once per client leaf
+    and microbatch and no other launch, then the first microbatch's TPGF
     gradients once more for the prefix's router aux (the step reports 0.0
     with more than one microbatch, as the reference does), finite and
     positive. Step wall, tokens/s, peak memory, a profiled step."""
@@ -3038,8 +3162,8 @@ def phase_moe_train_path(arch, layers):
     step_fn, opt = make_train_step(cfg)
     params, opt_state, recs, launches, peak_gb, last = _train_run(
         cfg, step_fn, opt, "moe_train_path", TRAIN_STEPS)
-    if any(launches.values()):
-        die(f"moe_train_path: a kernel launched: {launches}")
+    _check_train_launches("moe_train_path", cfg, params, launches,
+                          TRAIN_STEPS)
     mb0 = {k: v[:TRAIN_BATCH // cfg.microbatches] for k, v in last.items()}
     out = T.tpgf_grads(cfg, params, mb0, cfg.resolved_split_depth)
     aux = float(out.aux)
@@ -3070,7 +3194,8 @@ def phase_audio_train_path(arch):
     """Whisper-small whole at its config (bf16, remat, one microbatch,
     AdamW with the config's moment dtype) through ``launch/train.py``'s
     loop with the kernels off, 3 steps of 8 × 448 decoder tokens over
-    zero frames (the launcher's): finite losses, no kernel launch; and
+    zero frames (the launcher's): finite losses, Phase 3's launches
+    alone; and
     ``make_train_step`` must refuse ``use_pallas=True`` (the decoder's
     self-attention is causal, and flash has no backward). Step wall,
     tokens/s, peak memory, a profiled step."""
@@ -3089,8 +3214,8 @@ def phase_audio_train_path(arch):
     params, opt_state, recs, launches, peak_gb, last = _train_run(
         cfg, step_fn, opt, "audio_train_path", TRAIN_STEPS,
         seq=AUDIO_TRAIN_SEQ)
-    if any(launches.values()):
-        die(f"audio_train_path: a kernel launched: {launches}")
+    _check_train_launches("audio_train_path", cfg, params, launches,
+                          TRAIN_STEPS)
     walls = [r["wall_ms"] for r in recs[1:]] or [recs[0]["wall_ms"]]
     wall_ms = statistics.median(walls)
     n_params = param_count(params)
@@ -3373,7 +3498,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_ncu()
     launches = {}
-    main_launches, eng = phase_path("main_path", ("fuse", "aggregate"),
+    main_launches, eng = phase_path("main_path",
+                                    ("sumsq", "fuse", "aggregate"),
                                     count_flops=True)
     launches["main_path"] = main_launches
     launches["clip_path"] = phase_clip_path(cfg, eng.state.params, d_max)
@@ -3383,7 +3509,7 @@ def main() -> None:
                                               phase_fleet_mesh_path)
     timed_phase("sanitize_path", phase_sanitize_path)
     launches["width_path"] = phase_path(
-        "width_path", ("fuse", "aggregate", "tier_sum"),
+        "width_path", ("sumsq", "fuse", "aggregate", "tier_sum"),
         width_tiers=LADDER, cross_tier="fused")[0]
     gc.collect()
     torch.cuda.empty_cache()
@@ -3457,10 +3583,11 @@ def main() -> None:
     # each kernel's launches come from the path that carries it
     carried_by = {"fuse": "main_path", "aggregate": "main_path",
                   "aggregate_numerator": "fleet_mesh_path",
-                  "tier_sum": "width_path", "sumsq": "clip_path",
+                  "tier_sum": "width_path", "sumsq": "main_path",
                   "flash_attention": "serve_path",
                   "ssd_scan": "ssm_serve_path"}
-    also = dict(scenario, moe_serve_path=launches["moe_serve_path"],
+    also = dict(scenario, clip_path=launches["clip_path"],
+                moe_serve_path=launches["moe_serve_path"],
                 vlm_serve_path=launches["vlm_serve_path"],
                 audio_serve_path=launches["audio_serve_path"],
                 moe_train_path=train_launches["moe_train_path"],

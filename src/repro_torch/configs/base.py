@@ -84,7 +84,10 @@ class ModelConfig:
     # --- runtime ---
     dtype: str = "float32"           # activations/params dtype for this config
     remat: bool = False
-    use_pallas: bool = False         # in the port: use the hand-written kernels
+    # in the port: flash, the scan, aggregate, tier_sum (and fuse on
+    # sharded gradients) take their hand-written kernels; TPGF's Phase 3
+    # runs sumsq and fuse on the card whatever this says
+    use_pallas: bool = False
     microbatches: int = 1
 
     @property

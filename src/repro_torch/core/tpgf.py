@@ -19,6 +19,8 @@ Everything returns *gradients*; ``repro_torch.optim`` applies them.
 (``tpgf.client_forward``, ``tpgf.local_head``, ``tpgf.server``,
 ``tpgf.client_backward`` over both pulls, ``tpgf.fuse`` over the clip,
 Eqs. 3-4 and the degrade), as is ``tpgf_grads``' merge (``tpgf.merge``).
+Phase 3 on the card (``clip_and_fuse``) always runs the hand-written
+``sumsq`` and ``fuse`` kernels; the CPU keeps the plain chain.
 ``tpgf_grads`` and ``local_only_grads`` take and return full-params
 trees (the LM train step's form); ``tpgf_grads_split`` works on the
 split views (the federated strategies' form).
@@ -90,18 +92,15 @@ def fused_loss(loss_client, loss_server, d_i: int, d_s: int,
     return w * loss_client + (1.0 - w) * loss_server
 
 
-def _fault_degrade(server_available, w_c, g_server_params, g_client,
-                   g_client_local):
-    """Fault-tolerant degrade (paper §II-C): where the server is
-    unreachable this step, the fusion weight collapses to 1, the encoder
-    takes its local-only (Phase-1) gradient and the server branch gets a
-    zero gradient. ``server_available`` is a host bool (the engine's
-    availability draw) or None (never degrade)."""
-    if server_available is None or bool(server_available):
-        return w_c, g_server_params, g_client
-    w_c = torch.ones_like(w_c)
-    g_server_params = tree_map(torch.zeros_like, g_server_params)
-    return w_c, g_server_params, g_client_local
+def _fault_degrade(w_c, g_server_params, g_client_local, tau: float):
+    """Fault-tolerant degrade (paper §II-C), for a step whose server is
+    unreachable: the fusion weight collapses to 1, the encoder takes its
+    local-only (Phase-1) gradient, clipped, and the server branch gets a
+    zero gradient. Eq. 4 is not computed. Returns (w_c, g_server_params,
+    g_client)."""
+    g_client, _ = clip_by_global_l2(g_client_local, tau)
+    return (torch.ones_like(w_c),
+            tree_map(torch.zeros_like, g_server_params), g_client)
 
 
 def clip_by_global_l2(tree, tau: float):
@@ -119,7 +118,9 @@ def fuse_gradients(g_client, g_server, w_client, *, use_pallas: bool = False):
     """Eq. (4): per-leaf fused encoder gradient; ``use_pallas`` routes it
     through the hand-written ``fuse`` kernel (the reference's flag name).
     Sharded gradients (DTensors) reach the kernel through ``local_map``,
-    each rank's shards of a leaf in one launch."""
+    each rank's shards of a leaf in one launch. Phase 3 calls this only
+    for gradients off the card or sharded (``clip_and_fuse``); on the
+    card it runs the kernels whatever the flag says."""
     w_c = w_client.float()
     if use_pallas and SH.is_dtensor(w_c):
         from torch.distributed.tensor.experimental import local_map
@@ -138,6 +139,29 @@ def fuse_gradients(g_client, g_server, w_client, *, use_pallas: bool = False):
     return tree_map(
         lambda a, b: (w_c * a.float() + (1.0 - w_c) * b.float()).to(a.dtype),
         g_client, g_server)
+
+
+def clip_and_fuse(g_client_local, g_client_server, w_client, tau: float, *,
+                  use_pallas: bool = False):
+    """Phase 3: the global-L2 clip of the local encoder gradient at
+    ``tau``, then Eq. 4. The route follows the gradients' device, not
+    ``use_pallas``. On the card: two hand-written passes,
+    ``fuse_tree(tau=)`` (Σx² by ``sumsq``, the clip scale on the device,
+    then ``fuse`` once per leaf with the scale applied in registers and
+    the fused value rounded once, as the reference's kernel path does).
+    On the CPU: the plain chain, ``clip_by_global_l2`` (which rounds the
+    clipped gradient to its dtype) then ``fuse_gradients`` (through
+    ``fuse``'s plain version under ``use_pallas``). Sharded gradients
+    (DTensors) take the plain chain too, their clip norm being a
+    cross-rank sum, and reach ``fuse`` under ``use_pallas``."""
+    x0 = tree_leaves(g_client_local)[0]
+    if x0.device.type == "cuda" and not SH.is_dtensor(x0):
+        from repro_torch.kernels.tpgf_fusion.ops import fuse_tree
+        return fuse_tree(g_client_local, g_client_server, w_client.float(),
+                         tau=tau)
+    clipped, _ = clip_by_global_l2(g_client_local, tau)
+    return fuse_gradients(clipped, g_client_server, w_client,
+                          use_pallas=use_pallas)
 
 
 def tpgf_grads(cfg: ModelConfig, params, batch, d: int, *,
@@ -189,7 +213,12 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
     ``aux`` is the client prefix's MoE router loss, detached: it is a
     metric, and no gradient flows through it (the reference pulls a zero
     cotangent for it); the server's own router loss is inside
-    ``loss_server``."""
+    ``loss_server``.
+
+    Phase 3 is ``clip_and_fuse``: on the card the ``sumsq`` and ``fuse``
+    kernels, whatever ``cfg.use_pallas`` says; on the CPU the plain chain.
+    With ``server_available`` false the local gradient is clipped and Eq.
+    4 is skipped (``_fault_degrade``)."""
     d_s = cfg.split_stack_len - d
     c_paths, c_leaves = grad_leaves(client_p)
     s_paths, s_leaves = grad_leaves(server_p)
@@ -236,18 +265,19 @@ def tpgf_grads_split(cfg: ModelConfig, wcfg: ModelConfig, client_p, server_p,
         g_server_params = SH.match_placements(g_server_params, server_p)
         g_local = SH.match_placements(g_local, local_p)
 
-    # ---- Phase 3: clip + loss-weighted fusion (Eqs. 3-4)
+    # ---- Phase 3: clip + loss-weighted fusion (Eqs. 3-4), or the degrade
+    # (``server_available``: the engine's host bool draw; None never
+    # degrades)
     with span("tpgf.fuse"):
-        g_client_local, _ = clip_by_global_l2(g_client_local,
-                                              cfg.tpgf_clip)
         loss_client, loss_server = loss_client.detach(), loss_server.detach()
         w_c = tpgf_weight(loss_client, loss_server, d, d_s, cfg.tpgf_eps,
                           variant=cfg.tpgf_variant)
-        g_client = fuse_gradients(g_client_local, g_client_server, w_c,
-                                  use_pallas=cfg.use_pallas)
-        w_c, g_server_params, g_client = _fault_degrade(
-            server_available, w_c, g_server_params, g_client,
-            g_client_local)
+        if server_available is None or bool(server_available):
+            g_client = clip_and_fuse(g_client_local, g_client_server, w_c,
+                                     cfg.tpgf_clip, use_pallas=cfg.use_pallas)
+        else:
+            w_c, g_server_params, g_client = _fault_degrade(
+                w_c, g_server_params, g_client_local, cfg.tpgf_clip)
     if isinstance(aux_prefix, torch.Tensor):
         aux_prefix = aux_prefix.detach()
     return TPGFSplitOut(g_client, g_server_params, g_local,

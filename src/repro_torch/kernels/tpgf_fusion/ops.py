@@ -171,8 +171,9 @@ def fuse_tree(g_client, g_server, w_client, *, tau: float = None):
     """Eq. 4 over a tree, leaf by leaf. With ``tau`` the Phase-1 global-L2
     clip is fused in: Σx² over ``g_client``'s leaves in leaf order (the
     ``sumsq`` kernel), clip scale ``min(1, tau/(sqrt(Σ) + 1e-12))``, all on
-    the device; without it the clip scale is 1.0 (the path's call: the
-    clip is applied before)."""
+    the device (Phase 3 on the card, ``core.tpgf.clip_and_fuse``); without
+    it the clip scale is 1.0 (``fuse_gradients``: the clip is applied
+    before)."""
     leaves = tree_leaves(g_client)
     dev = leaves[0].device
     if tau is None:

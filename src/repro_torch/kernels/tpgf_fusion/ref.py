@@ -10,6 +10,10 @@ global-L2 clip factor min(1, tau/||g||), 1.0 on the engine's path.
 ``tier_sum``: ``sum_t w[t] * x[t]`` in fp32, accumulated in tier order
 (``acc = w0*x0``, then ``acc + w_t*x_t``), the order of
 ``core.tpgf.fuse_tiers``' plain path. ``sumsq``: ``sum x^2`` in fp32.
+
+``plain_chain_bound``: how far TPGF's Phase 3 on the card (``sumsq`` and
+``fuse``, one rounding) may lie from the plain chain, which rounds the
+clipped gradient to bf16 before Eq. 4 and then rounds again.
 """
 from __future__ import annotations
 
@@ -33,3 +37,28 @@ def tier_sum(leaves, weights):
 
 def sumsq(x):
     return torch.sum(torch.square(x.float()))
+
+
+def eq4_fp32(g_client, g_server, w_client, clip_scale):
+    """Eq. 4 with the clip scale inside, in fp32, not rounded."""
+    w = w_client.float()
+    return w * (g_client.float() * clip_scale) + (1.0 - w) * g_server.float()
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at ``|x|`` (at 0, the smallest normal's),
+    in fp32."""
+    m, e = torch.frexp(x.float().abs())
+    e = torch.where(m == 0, torch.full_like(e, -125), e)
+    return torch.ldexp(torch.ones_like(m), e - 8)
+
+
+def plain_chain_bound(fused, plain, g_client, w_client, clip_scale):
+    """Elementwise, how far ``fused`` (Eq. 4 with the clip scale inside,
+    rounded once) may lie from ``plain`` (the clipped gradient rounded to
+    bf16, then Eq. 4 rounded again): one ulp of the result plus ``w``
+    times one ulp of the clipped term. Where Eq. 4's two terms cancel,
+    the second part is many ulps of the small result, so one ulp of the
+    result is no bound."""
+    return torch.maximum(bf16_ulp(fused), bf16_ulp(plain)) \
+        + w_client.float() * bf16_ulp(g_client.float() * clip_scale)

@@ -33,7 +33,10 @@ kernels on vs off within 1e-3 of the largest logit, the cross-attention
 cache bit for bit. ``flash_attention``, ``ssd_scan`` and ``fuse`` through
 the sharded regions' ``local_map`` on a (1, 1) NCCL mesh: the launches
 and the results of the meshless run; a gloo mesh of CUDA tensors
-refused.
+refused. TPGF's Phase 3 in reduced bf16 Mixtral and Granite steps with
+the kernels off: ``sumsq`` and ``fuse`` once per client leaf and
+microbatch, within the plain chain's extra rounding
+(``ref.plain_chain_bound``) of it.
 """
 import math
 
@@ -504,6 +507,109 @@ def test_ssm_train_step_on_the_card_launches_fuse_and_no_scan(cuda):
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
 
+PHASE3_ARCHS = ["mixtral_8x7b", "granite_4_0_h_small"]
+
+
+def _bf16_train_case(cuda, arch, microbatches):
+    """A reduced config in bf16 with the kernels off, its parameters on
+    the card and a batch of 4 × 32 tokens."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.models.model import init_params
+    cfg = get_reduced(arch).replace(dtype="bfloat16", use_pallas=False,
+                                    microbatches=microbatches)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (4, 33), generator=g, device=cuda)
+    return cfg, params, {"tokens": tok[:, :32], "labels": tok[:, 1:]}
+
+
+@pytest.mark.parametrize("arch", PHASE3_ARCHS)
+def test_train_step_on_the_card_runs_phase3_through_sumsq_and_fuse(cuda,
+                                                                   arch):
+    """A reduced moe (Mixtral) and ssm_moe (Granite) train step in bf16
+    with ``use_pallas=False``: Phase 3 follows the gradients' device, so
+    ``sumsq`` and ``fuse`` each launch once per non-empty client leaf and
+    microbatch (an empty kind stack launches nothing), and the metrics are
+    finite."""
+    from repro_torch.core.supernet import split_params
+    from repro_torch.kernels.tpgf_fusion.ops import fuse_leaf, sumsq_leaf
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg, params, batch = _bf16_train_case(cuda, arch, 2)
+    n_client = sum(1 for x in tree_leaves(split_params(
+        cfg, params, cfg.resolved_split_depth)[0]) if x.numel())
+    step, opt = make_train_step(cfg)
+    state = opt.init(params)
+    sumsq0, fuse0 = sumsq_leaf.launches, fuse_leaf.launches
+    params, state, metrics = step(params, state, batch)
+    torch.cuda.synchronize()
+    assert sumsq_leaf.launches - sumsq0 == 2 * n_client
+    assert fuse_leaf.launches - fuse0 == 2 * n_client
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("arch", PHASE3_ARCHS)
+def test_phase3_kernel_route_within_the_plain_chains_rounding(cuda, arch):
+    """On one microbatch's client gradients as ``torch.autograd.grad``
+    returns them on the card (every leaf contiguous): the kernel route
+    (``fuse_tree(tau=)``), the clip engaged, is within one bf16 ulp of the
+    fp32 Eq. 4 rounded once, give or take its clip scale's other order of
+    summation, and in all no farther from it than the plain chain
+    (``clip_by_global_l2``, then ``fuse_gradients``); the two lie within
+    one ulp of the result plus ``w`` times one ulp of the clipped term
+    (``ref.plain_chain_bound``).
+    ``tpgf_grads_split`` returned the kernel route's result bit for
+    bit."""
+    from repro_torch.core import supernet as SN
+    from repro_torch.core import tpgf as T
+    from repro_torch.kernels.tpgf_fusion import ops as O, ref as R
+    from repro_torch.tree import tree_flatten_with_path
+    cfg, params, batch = _bf16_train_case(cuda, arch, 1)
+    d = cfg.resolved_split_depth
+    calls, inner = [], T.clip_and_fuse
+
+    def watched(*args, **kwargs):
+        calls.append(args)
+        return inner(*args, **kwargs)
+
+    T.clip_and_fuse = watched
+    try:
+        out = T.tpgf_grads_split(cfg, cfg, *SN.split_params(cfg, params, d),
+                                 batch, d)
+    finally:
+        T.clip_and_fuse = inner
+    gl, gs, w, tau = calls[0]
+    for path, x in tree_flatten_with_path(gl) + tree_flatten_with_path(gs):
+        assert x.is_contiguous(), path
+    again = O.fuse_tree(gl, gs, w.float(), tau=tau)
+    norm = float(T.clip_by_global_l2(gl, tau)[1])
+    tau = min(tau, 0.5 * norm)                         # the clip engaged
+    got = O.fuse_tree(gl, gs, w.float(), tau=tau)
+    clipped, norm = T.clip_by_global_l2(gl, tau)
+    cs = torch.clamp(tau / (norm + 1e-12), max=1.0)
+    want = T.fuse_gradients(clipped, gs, w)
+    err_got = err_want = 0.0
+    for (path, x), (_, y), (_, z), (_, f), (_, a), (_, b) in zip(
+            tree_flatten_with_path(got), tree_flatten_with_path(want),
+            tree_flatten_with_path(again),
+            tree_flatten_with_path(out.g_client),
+            tree_flatten_with_path(gl), tree_flatten_with_path(gs)):
+        assert x.dtype == y.dtype == torch.bfloat16, path
+        assert torch.equal(z, f), path
+        exact = R.eq4_fp32(a, b, w, cs)
+        # the kernels' clip scale sums Σx² in another order: a few fp32
+        # ulps of cs, far below a bf16 ulp of the clipped term
+        gap = (x.float() - exact.to(x.dtype).float()).abs()
+        slack = 2.0 ** -16 * w.float() * (a.float() * cs).abs()
+        assert bool((gap <= R.bf16_ulp(exact) + slack).all()), path
+        err_got += float((x.float() - exact).abs().sum())
+        err_want += float((y.float() - exact).abs().sum())
+        assert bool(((x.float() - y.float()).abs()
+                     <= R.plain_chain_bound(x, y, a, w, cs)).all()), path
+    assert err_got <= err_want
+
+
 SCENARIO_ROUNDS = {
     # (strategy factory settings, engine settings, kernels that must launch)
     "unstable": ({}, {}, ("fuse", "aggregate")),
@@ -545,13 +651,14 @@ def test_scenario_round_on_the_card_launches_the_kernels(cuda, name):
     """One round of ``unstable`` and of ``hasfl`` on the width ladder with
     the kernels on launches each kernel of their path, and agrees with the
     same round with the kernels off (loss and params within 1e-4), which
-    launches none."""
+    launches neither ``aggregate`` nor ``tier_sum``: the flag selects
+    those, while Phase 3 on the card runs ``fuse`` either way."""
     from repro_torch.tree import tree_flatten_with_path, tree_get
     rec, params, launches = _scenario_round(cuda, name, True)
     for k in SCENARIO_ROUNDS[name][2]:
         assert launches[k] > 0, (k, launches)
     prec, pparams, plaunches = _scenario_round(cuda, name, False)
-    assert not any(plaunches.values()), plaunches
+    assert not (plaunches["aggregate"] or plaunches["tier_sum"]), plaunches
     assert abs(rec["loss"] - prec["loss"]) <= 1e-4
     for path, x in tree_flatten_with_path(params):
         torch.testing.assert_close(x, tree_get(pparams, path), rtol=0,
